@@ -2,8 +2,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
 version on the card, maps reads at the paper's Table IV lengths over a
-4,641,652-base reference (the length of E. coli K-12 MG1655) through both
-kernels, checks kernels-on against kernels-off, and times each kernel.
+4,641,652-base reference (the length of E. coli K-12 MG1655) through the
+chain and tile kernels, drives one mixed submit through ``KernelService``
+(map, seed, chain, sw, dtw, sort, scan) and holds every result to its
+direct call, sorts the sort traffic through the radix-rank kernel
+(``ops.radix_sort_chunks``), checks kernels-on against kernels-off, and
+times each kernel.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -153,7 +157,41 @@ def check_kernels(dev) -> dict:
             log(f"[kernels] dp_tile dtw {tr}x{tc} batch={lead}: "
                 f"allclose(rtol=1e-5, atol=1e-4)={close} max_abs_err={err}")
             check(close, f"dp_tile dtw {tr}x{tc} {lead} differs")
+    errs["radix_rank"] = check_radix_rank(dev)
     return errs
+
+
+def check_radix_rank(dev) -> float:
+    """radix_rank against its plain version, exact, at every pass's shift,
+    for ragged and whole chunk lengths; radix_sort_chunks against
+    torch.sort(stable=True) along each chunk."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radix_rank as KR
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    err = 0.0
+    for clen in (1, 255, 1024, 16_384):
+        keys = torch.randint(0, 2**32, (4, clen), generator=g, device=dev,
+                             dtype=torch.int64)
+        keys[:, ::3] = keys[:, :1].clone()    # repeated keys
+        for shift in (0, 8, 16, 24):
+            want_r, want_h = KR.radix_rank_plain(keys, shift)
+            ranks, hists = KR.radix_rank(keys, shift)
+            torch.cuda.synchronize()
+            err = max(err, float((ranks - want_r).abs().max()),
+                      float((hists - want_h).abs().max()))
+            same = torch.equal(ranks, want_r) and torch.equal(hists, want_h)
+            log(f"[kernels] radix_rank (4, {clen}) shift={shift}: "
+                f"exact={same}")
+            check(same, f"radix_rank (4, {clen}) shift {shift} differs")
+        sk, sv = ops.radix_sort_chunks(keys)
+        want_k, want_i = torch.sort(keys, dim=1, stable=True)
+        same = torch.equal(sk, want_k) and torch.equal(sv.long(), want_i)
+        log(f"[kernels] radix_sort_chunks (4, {clen}) == torch.sort(stable)"
+            f": {same}")
+        check(same, f"radix_sort_chunks (4, {clen}) differs from torch.sort")
+    return err
 
 
 # --------------------------------------------------------------------------
@@ -234,7 +272,356 @@ def map_main_path(reference, reads, dev):
         if name.startswith("PBHF"):
             check(acc == 1.0, f"{name} reads not within 200 bases of truth: "
                   f"{[(r.pos, t) for r, t in pairs]}")
-    return mapper, launches, max_n
+    return mapper, launches, max_n, results
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the KernelService front door, one mixed submit
+# --------------------------------------------------------------------------
+
+SERVICE_SEQ = 64             # sw / dtw bucket quantum and tile
+SW_PREFIX = 2000             # sw requests: each read's first 2,000 bases
+DTW_LENGTHS = (2048, 4096)   # 4 pairs of each, so two buckets batch 4 each
+BULK_N = 65_536              # keys per sort request, steps per scan request
+BULK_REQUESTS = 8
+SORT_CHUNKS = 4
+
+
+def service_requests(mapper, reads, seed):
+    """The mixed submit, and the anchors the direct seed stage returns."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 500)
+    reqs, anchors = [], []
+    for _, (read, _) in reads:
+        reqs.append(("map", {"read": read}))
+        reqs.append(("seed", {"read": read}))
+        q, r, valid = mapper._seed(read)
+        anchors.append((q[valid], r[valid]))
+    for q, r in anchors:
+        reqs.append(("chain", {"q": q, "r": r}))
+    ref = mapper.reference
+    for _, (read, truth) in reads:
+        lo = max(0, truth - 64)
+        reqs.append(("sw", {"a": read[:SW_PREFIX].astype(np.int32),
+                            "b": ref[lo:truth + SW_PREFIX + 64]
+                            .astype(np.int32)}))
+    for n in DTW_LENGTHS:
+        for _ in range(4):
+            walk = np.cumsum(rng.normal(size=(2, n)), axis=1)
+            reqs.append(("dtw", {"s": walk[0].astype(np.float32),
+                                 "r": walk[1].astype(np.float32)}))
+    for _ in range(BULK_REQUESTS):
+        reqs.append(("sort", {"keys": rng.integers(0, 2**32, BULK_N,
+                                                   dtype=np.uint32)}))
+    for _ in range(BULK_REQUESTS):
+        reqs.append(("scan1d", {
+            "a": rng.uniform(0.5, 1.0, BULK_N).astype(np.float32),
+            "b": rng.normal(size=BULK_N).astype(np.float32),
+            "x0": np.float32(rng.normal())}))
+    return reqs, anchors
+
+
+class _Counted:
+    """Stands in for one service adapter: records, per kernel of the
+    submit, the change of each wrapper's launch count and the host ms.
+    A nested call (the map kernel's seed stage) counts for its caller."""
+
+    depth = 0
+
+    def __init__(self, adapter, tally):
+        self.adapter, self.tally = adapter, tally
+
+    def run(self, payloads):
+        from repro_torch.kernels import chain_scan as KC
+        from repro_torch.kernels import dtw_wavefront as KT
+        from repro_torch.kernels import radix_rank as KR
+        if _Counted.depth:
+            return self.adapter.run(payloads)
+        _Counted.depth += 1
+        c0 = (KC.launches, KT.launches, KR.launches)
+        t0 = time.perf_counter()
+        try:
+            return self.adapter.run(payloads)
+        finally:
+            _Counted.depth -= 1
+            c1 = (KC.launches, KT.launches, KR.launches)
+            self.tally[self.adapter.name] = {
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "chain_scan": c1[0] - c0[0], "dp_tile": c1[1] - c0[1],
+                "radix_rank": c1[2] - c0[2]}
+
+
+def tile_positions(n, m):
+    return -(-n // SERVICE_SEQ) * -(-m // SERVICE_SEQ)
+
+
+def service_phase(mapper, reads, main_results, dev, seed):
+    """One mixed KernelService.submit on the card at full width, every
+    result held to its direct call in the port on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.apps.read_mapper import MapperConfig
+    from repro_torch.core import scan1d
+    from repro_torch.core import sort as rsort
+    from repro_torch.kernels import chain_scan as KC
+    from repro_torch.kernels import dtw_wavefront as KT
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radix_rank as KR
+    from repro_torch.runtime import KernelService, Request, ServiceConfig
+    from repro_torch.runtime import bucketing
+
+    cfg = ServiceConfig(seq_bucket=SERVICE_SEQ, sw_tile=SERVICE_SEQ,
+                        dtw_tile=SERVICE_SEQ, sort_chunks=SORT_CHUNKS,
+                        mapper=MapperConfig(mode="squire"))
+    svc = KernelService(cfg, reference=mapper.reference, device=dev)
+    t0 = time.perf_counter()
+    svc.index
+    torch.cuda.synchronize()
+    log(f"[service] index built in {(time.perf_counter() - t0) * 1e3:.1f} "
+        f"ms")
+    reqs, anchors = service_requests(mapper, reads, seed)
+    tally = {}
+    for name in list(svc._adapters):
+        svc._adapters[name] = _Counted(svc._adapters[name], tally)
+
+    torch.cuda.synchronize()
+    KC.launches = KT.launches = KR.launches = 0
+    t0 = time.perf_counter()
+    got = svc.submit([Request(k, p) for k, p in reqs])
+    wall = time.perf_counter() - t0
+    launches = {"chain_scan": KC.launches, "dp_tile": KT.launches,
+                "radix_rank": KR.launches}
+    log(f"[service] {len(reqs)} requests in one submit: {wall:.3f} s; "
+        f"launches {launches}")
+
+    # expected launches, from the bucket keys alone
+    mcfg = cfg.mapper
+    by = {}
+    for (k, p), res in zip(reqs, got):
+        by.setdefault(k, []).append((p, res))
+    chain_b = {bucketing.round_up(max(len(p["q"]), 1), cfg.anchor_bucket)
+               for p, _ in by["chain"]}
+    map_chain_b = {bucketing.round_up(r.n_anchors, mcfg.anchor_bucket)
+                   for _, r, _ in main_results if r.n_anchors >= 2}
+    sw_b = {(bucketing.round_up(len(p["a"]), SERVICE_SEQ),
+             bucketing.round_up(len(p["b"]), SERVICE_SEQ))
+            for p, _ in by["sw"]}
+    dtw_b = {(bucketing.round_up(len(p["s"]), SERVICE_SEQ),
+              bucketing.round_up(len(p["r"]), SERVICE_SEQ))
+             for p, _ in by["dtw"]}
+    map_b = {(bucketing.round_up(len(read), mcfg.read_bucket),
+              bucketing.round_up(r.align_cells // len(read),
+                                 mcfg.read_bucket))
+             for (_, (read, _)), (_, r, _) in zip(reads, main_results)
+             if r.align_cells}
+    want_chain = len(chain_b) + len(map_chain_b)
+    want_tiles = (sum(tile_positions(*b) for b in sw_b)
+                  + sum(tile_positions(*b) for b in dtw_b)
+                  + sum(-(-a // mcfg.sw_tile) * -(-b // mcfg.sw_tile)
+                        for a, b in map_b))
+    log(f"[service] expected chain_scan={want_chain} (chain buckets "
+        f"{sorted(chain_b)}, map anchor buckets {sorted(map_chain_b)}), "
+        f"dp_tile={want_tiles} (sw buckets {sorted(sw_b)}, dtw buckets "
+        f"{sorted(dtw_b)}, {len(map_b)} map align buckets)")
+    check(launches["chain_scan"] == want_chain,
+          f"service chain_scan launches {launches['chain_scan']} != "
+          f"{want_chain} (one per anchor bucket)")
+    check(launches["dp_tile"] == want_tiles,
+          f"service dp_tile launches {launches['dp_tile']} != {want_tiles} "
+          f"(one per tile position per bucket)")
+    check(len(dtw_b) == 2 and len(by["dtw"]) == 8,
+          "dtw traffic should fill two buckets of 4")
+
+    # every result against its direct call on the card
+    for (_, r_direct, _), (_, r_svc) in zip(main_results, by["map"]):
+        check(dataclasses.asdict(r_direct) == dataclasses.asdict(r_svc),
+              f"service map {r_svc} != ReadMapper.map_read {r_direct}")
+    for (q, r), (_, res) in zip(anchors, by["seed"]):
+        check(np.array_equal(res["q"], q) and np.array_equal(res["r"], r),
+              "service seed anchors differ from the seed stage")
+    for p, res in by["chain"]:
+        f, pred = ops.chain_anchors(torch.as_tensor(p["q"], device=dev),
+                                    torch.as_tensor(p["r"], device=dev),
+                                    T=64)
+        check(np.array_equal(res["f"], f.cpu().numpy())
+              and np.array_equal(res["pred"], pred.cpu().numpy()),
+              f"service chain (N={len(p['q'])}) differs from "
+              f"ops.chain_anchors")
+    for p, res in by["sw"]:
+        mat, best = ops.sw_tiled(torch.as_tensor(p["a"], device=dev),
+                                 torch.as_tensor(p["b"], device=dev),
+                                 tile_r=SERVICE_SEQ, tile_c=SERVICE_SEQ)
+        flat = int(torch.argmax(mat.reshape(-1)))
+        end = (flat // mat.shape[1], flat % mat.shape[1])
+        check(float(res["score"]) == float(best) and res["end"] == end,
+              f"service sw {res} != ops.sw_tiled ({float(best)}, {end})")
+    dtw_err = 0.0
+    for p, res in by["dtw"]:
+        _, dist = ops.dtw_tiled(torch.as_tensor(p["s"], device=dev),
+                                torch.as_tensor(p["r"], device=dev),
+                                SERVICE_SEQ, SERVICE_SEQ)
+        d = float(dist)
+        dtw_err = max(dtw_err, abs(float(res["distance"]) - d))
+        check(abs(float(res["distance"]) - d) <= 1e-5 * abs(d),
+              f"service dtw {float(res['distance'])} != ops.dtw_tiled {d}")
+    for p, res in by["sort"]:
+        sk, sv = rsort.radix_sort(
+            torch.as_tensor(p["keys"].astype(np.int64), device=dev),
+            num_chunks=SORT_CHUNKS, min_parallel=0)
+        check(np.array_equal(res["keys"], sk.cpu().numpy())
+              and np.array_equal(res["vals"], sv.cpu().numpy()),
+              "service sort differs from core.sort.radix_sort")
+    for p, res in by["scan1d"]:
+        xs = scan1d.affine_scan(torch.as_tensor(p["a"], device=dev),
+                                torch.as_tensor(p["b"], device=dev),
+                                torch.as_tensor(p["x0"], device=dev))
+        check(np.array_equal(res["xs"], xs.cpu().numpy()),
+              "service scan1d differs from core.scan1d.affine_scan")
+    log(f"[service] every result equals its direct call on the card "
+        f"(map field for field, dtw max abs diff {dtw_err})")
+
+    seed_b = {bucketing.round_up(len(read), mcfg.read_bucket)
+              for _, (read, _) in reads}
+    buckets = {"map": len(map_b), "chain": len(chain_b), "sw": len(sw_b),
+               "dtw": len(dtw_b), "sort": 1, "scan1d": 1,
+               "seed": len(seed_b)}
+    positions = {"sw": sum(tile_positions(*b) for b in sw_b),
+                 "dtw": sum(tile_positions(*b) for b in dtw_b),
+                 "map": sum(-(-a // mcfg.sw_tile) * -(-b // mcfg.sw_tile)
+                            for a, b in map_b)}
+    per_kernel = {}
+    for name, t in sorted(tally.items()):
+        n_req = len(by[name])
+        nb = buckets[name]
+        row = {"requests": n_req, "buckets": nb,
+               "batch_per_launch": n_req / nb, "host_ms": t["ms"],
+               "host_ms_per_request": t["ms"] / n_req,
+               "launches": {k: t[k] for k in ("chain_scan", "dp_tile",
+                                               "radix_rank") if t[k]}}
+        if name in positions:
+            row["us_per_tile_position"] = t["ms"] * 1e3 / positions[name]
+        per_kernel[name] = row
+        log(f"[service] {name:6s} requests={n_req} buckets={nb} "
+            f"batch/launch={n_req / nb:.2f} launches={row['launches']} "
+            f"host_ms={t['ms']:.3f} ({t['ms'] / n_req:.3f} per request)"
+            + (f" us/tile position={row['us_per_tile_position']:.3f}"
+               if name in positions else ""))
+    check(tally["map"]["chain_scan"] == len(map_chain_b)
+          and tally["chain"]["chain_scan"] == len(chain_b),
+          "chain_scan launches per kernel differ from the anchor buckets")
+    return {"launches": launches, "per_kernel": per_kernel,
+            "sort": [(p, res) for p, res in by["sort"]]}
+
+
+def alg1_sort(keys, n_chunks):
+    """Paper Alg. 1 on the rank kernel: the keys as ``n_chunks`` chunks
+    through ops.radix_sort_chunks, merged pairwise with
+    core.sort.merge_sorted. Returns (sorted keys, original indices)."""
+    import torch
+    from repro_torch.core import sort as rsort
+    from repro_torch.kernels import ops
+
+    lc = keys.shape[0] // n_chunks
+    ck, cv = ops.radix_sort_chunks(keys.reshape(n_chunks, lc))
+    cv = cv.to(torch.int64) + lc * torch.arange(
+        n_chunks, device=keys.device, dtype=torch.int64)[:, None]
+    chunks = [(ck[i], cv[i]) for i in range(n_chunks)]
+    while len(chunks) > 1:
+        chunks = [rsort.merge_sorted(*chunks[i], *chunks[i + 1])
+                  for i in range(0, len(chunks), 2)]
+    return chunks[0]
+
+
+def rank_path(sort_traffic, dev):
+    """The sort traffic through the radix-rank kernel: each request's keys
+    as 4 chunks through ops.radix_sort_chunks, the chunks merged with
+    core.sort.merge_sorted, held exactly to the service's sort. Then, for
+    timing, 1,048,576 keys in 64 chunks the same way, against
+    torch.sort(stable=True)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import radix_rank as KR
+
+    keys = [torch.as_tensor(p["keys"].astype(np.int64), device=dev)
+            for p, _ in sort_traffic]
+    torch.cuda.synchronize()
+    KR.launches = 0
+    t0 = time.perf_counter()
+    merged = [alg1_sort(k, SORT_CHUNKS) for k in keys]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = KR.launches
+    for (mk, mv), (_, res) in zip(merged, sort_traffic):
+        check(np.array_equal(mk.cpu().numpy(), res["keys"])
+              and np.array_equal(mv.cpu().numpy(), res["vals"]),
+              "radix_sort_chunks + merge_sorted differs from the service's "
+              "sort")
+    log(f"[rank] {len(keys)} sort requests of {BULK_N} keys as "
+        f"{SORT_CHUNKS} chunks through radix_sort_chunks + merge_sorted: "
+        f"equal to the service's sort; {launches} radix_rank launches, "
+        f"{ms:.3f} ms host")
+    check(launches == len(keys) * 4,
+          f"radix_rank launched {launches} times, expected {len(keys) * 4}")
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    big = torch.randint(0, 2**32, (64 * BULK_N // SORT_CHUNKS,),
+                        generator=g, device=dev, dtype=torch.int64)
+    mk, mv = alg1_sort(big, 64)
+    want_k, want_i = torch.sort(big, stable=True)
+    check(torch.equal(mk, want_k) and torch.equal(mv, want_i),
+          "Alg. 1 on 1,048,576 keys differs from torch.sort(stable=True)")
+    alg1_ms = time_cuda(lambda: alg1_sort(big, 64), reps=3, rounds=3)
+    lib_ms = time_cuda(lambda: torch.sort(big, stable=True), reps=10)
+    log(f"[rank] {big.numel()} keys in 64 chunks: radix_sort_chunks + "
+        f"merge_sorted {alg1_ms:.3f} ms, equal to torch.sort(stable) "
+        f"{lib_ms:.4f} ms")
+    return {"launches": launches, "path_ms": ms, "alg1_1m_ms": alg1_ms,
+            "torch_sort_1m_ms": lib_ms}
+
+
+def radix_rank_entry(dev, rank_info, errs):
+    """Times of radix_rank at the path's shape (4, 16384) and at 1,048,576
+    keys in 64 chunks, beside its bound, its plain version and torch.sort."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radix_rank as KR
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for n_chunks in (SORT_CHUNKS, 64):
+        lc = BULK_N // SORT_CHUNKS
+        keys = torch.randint(0, 2**32, (n_chunks, lc), generator=g,
+                             device=dev, dtype=torch.int64)
+        ms = time_cuda(lambda: KR.radix_rank(keys, 8), reps=50)
+        plain = time_cuda(lambda: KR.radix_rank_plain(keys, 8), reps=5)
+        lib = time_cuda(lambda: torch.sort(keys, dim=1, stable=True),
+                        reps=20)
+        chunks_ms = time_cuda(lambda: ops.radix_sort_chunks(keys), reps=20)
+        n = keys.numel()
+        b_ms, b_by = bound(n * 8 + n * 4 + n_chunks * 256 * 4, 2 * n)
+        out[n_chunks] = (ms, plain, lib, chunks_ms, b_ms, b_by)
+        log(f"[time] radix_rank ({n_chunks}, {lc}): kernel {ms:.4f} ms, "
+            f"plain {plain:.3f} ms, bound {b_ms:.6f} ms ({b_by}); "
+            f"radix_sort_chunks {chunks_ms:.4f} ms, torch.sort(stable) "
+            f"{lib:.4f} ms")
+    ms, plain, lib, chunks_ms, b_ms, b_by = out[SORT_CHUNKS]
+    big = out[64]
+    return {"name": "radix_rank", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/radix_rank.cu",
+            "replaces": "src/repro/kernels/radix_rank.py:57",
+            "launches": rank_info["launches"],
+            "max_abs_err": errs["radix_rank"], "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "library": "torch.sort(keys, dim=1, stable=True)",
+            "shape": [SORT_CHUNKS, BULK_N // SORT_CHUNKS],
+            "radix_sort_chunks_ms": chunks_ms,
+            "alg1_1m_ms": rank_info["alg1_1m_ms"],
+            "torch_sort_1m_ms": rank_info["torch_sort_1m_ms"],
+            "at_64_chunks": {"ms": big[0], "plain_ms": big[1],
+                             "library_ms": big[2],
+                             "radix_sort_chunks_ms": big[3],
+                             "bound_ms": big[4]}}
 
 
 # --------------------------------------------------------------------------
@@ -422,11 +809,18 @@ def main(argv=None) -> int:
         for pair in genomics.sample_reads(reference, prof, READS_PER_PROFILE,
                                           seed=args.seed + 1 + i):
             reads.append((prof.name, pair))
-    mapper, launches, max_n = map_main_path(reference, reads, dev)
+    mapper, launches, max_n, results = map_main_path(reference, reads, dev)
+
+    svc_info = service_phase(mapper, reads[1:], results, dev, args.seed)
+    rank_info = rank_path(svc_info.pop("sort"), dev)
 
     kernels_on_vs_off(mapper, reads[1:], dev)
 
     line = kernel_line(dev, launches, errs, max_n)
+    line["kernels"].append(radix_rank_entry(dev, rank_info, errs))
+    line["kernels"][0]["service_launches"] = svc_info["launches"]["chain_scan"]
+    line["kernels"][1]["service_launches"] = svc_info["launches"]["dp_tile"]
+    line["service"] = svc_info["per_kernel"]
     trace = device_trace(mapper, reads[1][1][0][:2000])
     line["kernels"][1]["tile_device_us"] = trace["tile_device_us"]
     line["align_busy_share"] = trace["busy_share"]

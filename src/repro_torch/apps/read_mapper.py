@@ -158,7 +158,7 @@ def _sw_fn(mode: str, tile: int, use_kernels: bool,
     else:
         def run_base(a, b):
             mat = align_lib.sw_ref(a, b, params)
-            return mat, torch.amax(mat)
+            return mat, torch.amax(mat, dim=(-2, -1))
         return run_base
 
     def run(a, b):

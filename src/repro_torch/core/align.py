@@ -42,20 +42,23 @@ def sw_ref(a: Tensor, b: Tensor, params: SWParams = SWParams()) -> Tensor:
     H[j] = max_{k<=j} (x_k + k*gap) - j*gap: a running max. It equals the
     reference's column scan exactly when the scores are integers (the
     default parameters), since every intermediate is then exact in fp32.
+    a (..., n) and b (..., m) may carry leading axes of independent pairs.
     """
-    n, m = a.shape[0], b.shape[0]
+    n, m = a.shape[-1], b.shape[-1]
+    lead = a.shape[:-1]
     dev = a.device
     kgap = params.gap * torch.arange(m, dtype=torch.float32, device=dev)
-    mat = torch.empty((n, m), dtype=torch.float32, device=dev)
-    prev = torch.zeros((m,), dtype=torch.float32, device=dev)
-    zero1 = torch.zeros((1,), dtype=torch.float32, device=dev)
+    mat = torch.empty(lead + (n, m), dtype=torch.float32, device=dev)
+    prev = torch.zeros(lead + (m,), dtype=torch.float32, device=dev)
+    zero1 = torch.zeros(lead + (1,), dtype=torch.float32, device=dev)
     for i in range(n):
-        diag = torch.cat([zero1, prev[:-1]])
-        sub = torch.where(a[i] == b, params.match, params.mismatch)
+        diag = torch.cat([zero1, prev[..., :-1]], dim=-1)
+        sub = torch.where(a[..., i, None] == b, params.match,
+                          params.mismatch)
         x = torch.clamp_min(torch.maximum(diag + sub, prev - params.gap),
                             0.0)
-        row = torch.cummax(x + kgap, dim=0).values - kgap
-        mat[i] = row
+        row = torch.cummax(x + kgap, dim=-1).values - kgap
+        mat[..., i, :] = row
         prev = row
     return mat
 

@@ -16,11 +16,12 @@ The hand-written CUDA kernel of the sequential mode is
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.scan1d import associative_scan
 from repro_torch.core.semiring import MAXPLUS
 
 Tensor = torch.Tensor
@@ -38,10 +39,11 @@ class ChainParams(NamedTuple):
 def chain_scores(q: Tensor, r: Tensor, T: int,
                  params: ChainParams = ChainParams(),
                  anchor_valid: Tensor | None = None) -> Tensor:
-    """Fission phase: dense (N, T) fp32 match-up scores S[i, t] of chaining
-    anchor i after anchor i - t; NEG where invalid. q, r: (N,) integer
-    positions sorted by r. Keeps the reference's fp32 operation order."""
-    n = q.shape[0]
+    """Fission phase: dense (..., N, T) fp32 match-up scores S[i, t] of
+    chaining anchor i after anchor i - t; NEG where invalid. q, r: (..., N)
+    integer positions sorted by r; leading axes are independent problems.
+    Keeps the reference's fp32 operation order."""
+    n = q.shape[-1]
     dev = q.device
     q = q.to(torch.int64)
     r = r.to(torch.int64)
@@ -51,8 +53,13 @@ def chain_scores(q: Tensor, r: Tensor, T: int,
     valid = j >= 0
     jc = j.clamp(0, n - 1)
 
-    dq = q[:, None] - q[jc]
-    dr = r[:, None] - r[jc]
+    def back(x):                        # x[..., i - t] as (..., N, T)
+        flat = jc.reshape(-1).expand(x.shape[:-1] + (n * T,))
+        return torch.take_along_dim(x, flat, dim=-1).reshape(
+            x.shape[:-1] + (n, T))
+
+    dq = q[..., :, None] - back(q)
+    dr = r[..., :, None] - back(r)
     gap = (dq - dr).abs().to(torch.float32)
 
     alpha = torch.minimum(torch.minimum(dq, dr),
@@ -65,7 +72,7 @@ def chain_scores(q: Tensor, r: Tensor, T: int,
           & (dq <= params.max_dist) & (dr <= params.max_dist)
           & (gap <= params.bandwidth))
     if anchor_valid is not None:
-        ok &= anchor_valid[:, None] & anchor_valid[jc]
+        ok &= anchor_valid[..., :, None] & back(anchor_valid)
     return torch.where(ok, alpha - beta,
                        torch.tensor(NEG, dtype=torch.float32, device=dev))
 
@@ -119,31 +126,6 @@ def _compose(mc1, mc2):
     return m, c
 
 
-def _interleave(even: Tensor, odd: Tensor) -> Tensor:
-    out = torch.empty((even.shape[0] + odd.shape[0],) + even.shape[1:],
-                      dtype=even.dtype, device=even.device)
-    out[0::2] = even
-    out[1::2] = odd
-    return out
-
-
-def _associative_scan(fn, elems: List[Tensor]) -> List[Tensor]:
-    """Inclusive scan over axis 0 with the recursion of
-    ``jax.lax.associative_scan``: pairs are combined in the same order, so
-    float results associate the same way."""
-    n = elems[0].shape[0]
-    if n < 2:
-        return elems
-    reduced = fn([e[0:-1:2] for e in elems], [e[1::2] for e in elems])
-    odd = _associative_scan(fn, reduced)
-    if n % 2 == 0:
-        even = fn([e[0:-1] for e in odd], [e[2::2] for e in elems])
-    else:
-        even = fn(odd, [e[2::2] for e in elems])
-    even = [torch.cat([e[0:1], r], dim=0) for e, r in zip(elems, even)]
-    return [_interleave(e, o) for e, o in zip(even, odd)]
-
-
 def chain_blocked(scores: Tensor, w: Tensor, block: int = 16
                   ) -> Tuple[Tensor, Tensor]:
     """Tropical block-transfer associative scan (beyond the paper). Exact up
@@ -177,7 +159,7 @@ def chain_blocked(scores: Tensor, w: Tensor, block: int = 16
         sc[:, 0] = w_b[:, s]
         m, c = _compose((m, c), (sm, sc))
 
-    pm, pc = _associative_scan(
+    pm, pc = associative_scan(
         lambda x, y: list(_compose(tuple(x), tuple(y))), [m, c])
     v0 = torch.full((T,), NEG, device=dev)
     v_in = torch.cat(
@@ -189,10 +171,11 @@ def chain_blocked(scores: Tensor, w: Tensor, block: int = 16
     return f.reshape(-1)[:n], off.reshape(-1)[:n]
 
 
-def anchor_weights(n: int, params: ChainParams,
+def anchor_weights(shape, params: ChainParams,
                    anchor_valid: Tensor | None, device) -> Tensor:
-    """(N,) anchor self-scores w_i: the k-mer width, NEG for padding."""
-    w = torch.full((n,), float(params.kmer), dtype=torch.float32,
+    """Anchor self-scores w_i of ``shape`` (the anchors' shape, (..., N)):
+    the k-mer width, NEG for padding."""
+    w = torch.full(tuple(shape), float(params.kmer), dtype=torch.float32,
                    device=device)
     if anchor_valid is not None:
         w = torch.where(anchor_valid, w,
@@ -204,13 +187,19 @@ def chain_anchors(q: Tensor, r: Tensor, T: int = 64,
                   params: ChainParams = ChainParams(),
                   mode: str = "fission", block: int = 16,
                   anchor_valid: Tensor | None = None):
-    """Full chain kernel. Returns (f, pred) with pred[i] in [-1, i)."""
-    w = anchor_weights(q.shape[0], params, anchor_valid, q.device)
+    """Full chain kernel. Returns (f, pred) with pred[i] in [-1, i).
+    q, r (and anchor_valid) may carry leading axes of independent problems:
+    a (B, N) input returns what B single calls return."""
+    w = anchor_weights(q.shape, params, anchor_valid, q.device)
     scores = chain_scores(q, r, T, params, anchor_valid=anchor_valid)
     if mode in ("sequential", "fission"):
         f, off = chain_sequential(scores, w)
     elif mode == "blocked":
-        f, off = chain_blocked(scores, w, block=block)
+        rows = [chain_blocked(s_, w_, block=block) for s_, w_ in
+                zip(scores.reshape((-1,) + scores.shape[-2:]),
+                    w.reshape((-1,) + w.shape[-1:]))]
+        f = torch.stack([x for x, _ in rows]).reshape(w.shape)
+        off = torch.stack([o for _, o in rows]).reshape(w.shape)
     else:
         raise ValueError(f"unknown chain mode: {mode!r}")
     return f, pred_from_offsets(off)

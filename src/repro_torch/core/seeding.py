@@ -42,12 +42,14 @@ def hash32(x: Tensor) -> Tensor:
 
 
 def kmer_codes(seq: Tensor, k: int) -> Tensor:
-    """2-bit pack k-mers: seq (n,) in 0..3 -> (n-k+1,) codes. k <= 15."""
-    nk = seq.shape[0] - k + 1
+    """2-bit pack k-mers: seq (..., n) in 0..3 -> (..., n-k+1) codes.
+    k <= 15."""
+    nk = seq.shape[-1] - k + 1
     s = seq.to(torch.int64)
-    code = torch.zeros((nk,), dtype=torch.int64, device=seq.device)
+    code = torch.zeros(seq.shape[:-1] + (nk,), dtype=torch.int64,
+                       device=seq.device)
     for t in range(k):
-        code = ((code << 2) | s[t:t + nk]) & MASK32
+        code = ((code << 2) | s[..., t:t + nk]) & MASK32
     return code
 
 
@@ -55,18 +57,20 @@ def minimizers(seq: Tensor, k: int, w: int
                ) -> Tuple[Tensor, Tensor, Tensor]:
     """Window minimizers: per window of w consecutive k-mers, the k-mer with
     the smallest hash, leftmost on ties. Returns (positions, hashes, keep)
-    of length n-k-w+2; ``keep`` masks repeats of the previous window's pick.
+    of length n-k-w+2 along the last axis; ``keep`` masks repeats of the
+    previous window's pick.
     """
     h = hash32(kmer_codes(seq, k))
-    nw = h.shape[0] - w + 1
+    nw = h.shape[-1] - w + 1
     # hash * w + offset: the min is the smallest hash, then the leftmost
-    keyed = torch.stack([h[t:t + nw] * w + t for t in range(w)], dim=0)
+    keyed = torch.stack([h[..., t:t + nw] * w + t for t in range(w)], dim=0)
     best = torch.amin(keyed, dim=0)
     arg = best % w
     hmin = best // w
     pos = arg + torch.arange(nw, device=seq.device)
-    keep = torch.cat([torch.ones((1,), dtype=torch.bool, device=seq.device),
-                      pos[1:] != pos[:-1]])
+    keep = torch.cat([torch.ones(pos.shape[:-1] + (1,), dtype=torch.bool,
+                                 device=seq.device),
+                      pos[..., 1:] != pos[..., :-1]], dim=-1)
     return pos, hmin, keep
 
 
@@ -91,16 +95,17 @@ def build_index(ref: Union[np.ndarray, Tensor], k: int, w: int,
 def lookup_anchors(index: Index, qpos: Tensor, qhash: Tensor, qvalid: Tensor,
                    max_occ: int = 8):
     """Vectorized hash-table probe -> fixed-capacity anchor set (q, r, valid)
-    of shape (n_min * max_occ,)."""
+    of shape (..., n_min * max_occ)."""
     lo = torch.searchsorted(index.hashes, qhash, side="left")
     hi = torch.searchsorted(index.hashes, qhash, side="right")
-    occ = torch.arange(max_occ, device=qpos.device)[None, :]
-    slot = lo[:, None] + occ
-    hit = (slot < hi[:, None]) & qvalid[:, None]
+    occ = torch.arange(max_occ, device=qpos.device)
+    slot = lo[..., None] + occ
+    hit = (slot < hi[..., None]) & qvalid[..., None]
     slot = slot.clamp(0, index.positions.shape[0] - 1)
     r = index.positions[slot]
-    q = qpos[:, None].expand(r.shape)
-    return q.reshape(-1), r.reshape(-1), hit.reshape(-1)
+    q = qpos[..., None].expand(r.shape)
+    flat = qpos.shape[:-1] + (-1,)
+    return q.reshape(flat), r.reshape(flat), hit.reshape(flat)
 
 
 def seed(index: Index, read: Tensor, k: int, w: int, max_occ: int = 8,
@@ -110,12 +115,14 @@ def seed(index: Index, read: Tensor, k: int, w: int, max_occ: int = 8,
     ``valid_len``: the true read length when ``read`` is padded to a shape
     bucket; windows beyond it are masked. Invalid anchors take key 2^32-1
     and sort to the tail. Returns (q_sorted, r_sorted, valid_sorted).
+    ``read`` (..., n) may carry leading axes of independent reads, with
+    ``valid_len`` then a tensor of their true lengths.
     """
     qpos, qh, qvalid = minimizers(read, k, w)
     if valid_len is not None:
-        n_windows = int(valid_len) - k - w + 2
-        qvalid = qvalid & (torch.arange(qpos.shape[0], device=read.device)
-                           < n_windows)
+        n_windows = torch.as_tensor(valid_len, device=read.device) - k - w + 2
+        qvalid = qvalid & (torch.arange(qpos.shape[-1], device=read.device)
+                           < n_windows[..., None])
     q, r, valid = lookup_anchors(index, qpos, qh, qvalid, max_occ)
     key = torch.where(valid, r, torch.full_like(r, MASK32))
     packed = (q << 1) | valid.to(torch.int64)

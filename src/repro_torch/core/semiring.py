@@ -4,7 +4,8 @@ Every kernel the paper accelerates is an affine recurrence
 ``x_t = (a_t (*) x_{t-1}) (+) b_t`` over a semiring ``((+), (*))``:
 (max,+) for chain and Smith-Waterman, (min,+) for DTW, (+,*) for the
 diagonal-linear SSM scans. ``core.chain.chain_blocked`` composes max-plus
-transfer matrices with ``MAXPLUS.matmul``.
+transfer matrices with ``MAXPLUS.matmul``; ``core.scan1d`` composes the
+elementwise affine maps (``affine_apply``, ``affine_compose``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,16 @@ class Semiring:
             return torch.matmul(a, b)
         prod = self.mul(a[..., :, :, None], b[..., None, :, :])
         return self.add_reduce(prod, dim=-2)
+
+    def affine_apply(self, a: Tensor, b: Tensor, x: Tensor) -> Tensor:
+        """x' = (a (*) x) (+) b, elementwise (diagonal transition)."""
+        return self.add(self.mul(a, x), b)
+
+    def affine_compose(self, a1: Tensor, b1: Tensor, a2: Tensor,
+                       b2: Tensor):
+        """Compose elementwise affine maps: apply (a1, b1) first, then
+        (a2, b2): ((a2 (*) a1), (a2 (*) b1) (+) b2)."""
+        return self.mul(a2, a1), self.add(self.mul(a2, b1), b2)
 
 
 REAL = Semiring("real", add=torch.add, mul=torch.mul, zero=0.0, one=1.0)

@@ -41,46 +41,54 @@ def radix_sort_chunk(keys: Tensor, vals: Tensor, key_bits: int = 32
 
 def merge_sorted(ak: Tensor, av: Tensor, bk: Tensor, bv: Tensor
                  ) -> Tuple[Tensor, Tensor]:
-    """Stable parallel merge of two sorted (key, value) arrays: a's keys go
-    before b's equal keys."""
-    na, nb = ak.shape[0], bk.shape[0]
+    """Stable parallel merge of two sorted (key, value) arrays along the
+    last axis (leading axes are independent): a's keys go before b's equal
+    keys."""
+    na, nb = ak.shape[-1], bk.shape[-1]
     dev = ak.device
+    ak, bk = ak.contiguous(), bk.contiguous()
     pos_a = torch.arange(na, device=dev) + torch.searchsorted(
         bk, ak, side="left")
     pos_b = torch.arange(nb, device=dev) + torch.searchsorted(
         ak, bk, side="right")
-    nk = torch.zeros((na + nb,), dtype=ak.dtype, device=dev)
-    nv = torch.zeros((na + nb,), dtype=av.dtype, device=dev)
-    nk[pos_a] = ak
-    nk[pos_b] = bk
-    nv[pos_a] = av
-    nv[pos_b] = bv
+    lead = ak.shape[:-1]
+    nk = torch.zeros(lead + (na + nb,), dtype=ak.dtype, device=dev)
+    nv = torch.zeros(lead + (na + nb,), dtype=av.dtype, device=dev)
+    nk.scatter_(-1, pos_a, ak)
+    nk.scatter_(-1, pos_b, bk)
+    nv.scatter_(-1, pos_a, av)
+    nv.scatter_(-1, pos_b, bv)
     return nk, nv
 
 
 def radix_sort(keys: Tensor, vals: Optional[Tensor] = None,
                num_chunks: int = 8, key_bits: int = 32,
                min_parallel: int = 10_000):
-    """Chunk-parallel radix sort (paper Alg. 1): sort ``num_chunks`` chunks
-    in one batched pass, then merge them pairwise in log2 rounds. Arrays
-    below ``min_parallel`` sort as one chunk."""
-    n = keys.shape[0]
+    """Chunk-parallel radix sort (paper Alg. 1) along the last axis: sort
+    ``num_chunks`` chunks in one batched pass, then merge them pairwise in
+    log2 rounds. Arrays below ``min_parallel`` sort as one chunk. Leading
+    axes are independent arrays, each sorted as a single call would."""
+    n = keys.shape[-1]
+    lead = keys.shape[:-1]
     if vals is None:
-        vals = torch.arange(n, dtype=torch.int64, device=keys.device)
+        vals = torch.arange(n, dtype=torch.int64,
+                            device=keys.device).expand(keys.shape)
     if n < min_parallel or num_chunks == 1:
         return radix_sort_chunk(keys, vals, key_bits)
 
     pad = (-n) % num_chunks
     if pad:
-        keys = torch.cat([keys, torch.full((pad,), U32_MAX, dtype=keys.dtype,
-                                           device=keys.device)])
-        vals = torch.cat([vals, torch.zeros((pad,), dtype=vals.dtype,
-                                            device=vals.device)])
-    lc = keys.shape[0] // num_chunks
-    kc, vc = radix_sort_chunk(keys.reshape(num_chunks, lc),
-                              vals.reshape(num_chunks, lc), key_bits)
+        keys = torch.cat([keys, torch.full(lead + (pad,), U32_MAX,
+                                           dtype=keys.dtype,
+                                           device=keys.device)], dim=-1)
+        vals = torch.cat([vals, torch.zeros(lead + (pad,), dtype=vals.dtype,
+                                            device=vals.device)], dim=-1)
+    lc = keys.shape[-1] // num_chunks
+    kc, vc = radix_sort_chunk(keys.reshape(lead + (num_chunks, lc)),
+                              vals.reshape(lead + (num_chunks, lc)),
+                              key_bits)
 
-    chunks = [(kc[i], vc[i]) for i in range(num_chunks)]
+    chunks = [(kc[..., i, :], vc[..., i, :]) for i in range(num_chunks)]
     while len(chunks) > 1:
         nxt = [merge_sorted(*chunks[i], *chunks[i + 1])
                for i in range(0, len(chunks) - 1, 2)]
@@ -88,7 +96,7 @@ def radix_sort(keys: Tensor, vals: Optional[Tensor] = None,
             nxt.append(chunks[-1])
         chunks = nxt
     out_k, out_v = chunks[0]
-    return out_k[:n], out_v[:n]
+    return out_k[..., :n], out_v[..., :n]
 
 
 def sort_i32(keys: Tensor, vals: Optional[Tensor] = None, **kw):

@@ -20,7 +20,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("chain_scan", "dtw_wavefront")
+SOURCES = ("chain_scan", "dtw_wavefront", "radix_rank")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

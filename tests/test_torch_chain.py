@@ -157,3 +157,35 @@ def test_unbanded_oracle_copy_matches_reference():
     for x, y in zip(TC.chain_ref_unbanded(q, r, T=200),
                     C.chain_ref_unbanded(q, r, T=200)):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["fission", "blocked"])
+def test_chain_stage_batched_equals_single_calls(mode):
+    """A (3, N) stack of padded anchor sets returns what three (N,) calls
+    return, exactly: scores, weights and chains (core and kernel path)."""
+    sets = [genomics.anchor_set(nv, seed=seed, noise=30)
+            for seed, nv in ((0, 300), (1, 170), (2, 45))]
+    n = max(len(q) for q, _ in sets)
+    qs, rs, vs = [], [], []
+    for q, r in sets:
+        nv = len(q)
+        qs.append(np.pad(q, (0, n - nv)))
+        rs.append(np.pad(r, (0, n - nv), constant_values=2**30))
+        vs.append(np.arange(n) < nv)
+    q, r, v = (torch.as_tensor(np.stack(x)) for x in (qs, rs, vs))
+    scores = TC.chain_scores(q, r, 64, anchor_valid=v)
+    w = TC.anchor_weights(q.shape, TC.ChainParams(), v, q.device)
+    assert scores.shape == (3, n, 64) and w.shape == (3, n)
+    f, p = TC.chain_anchors(q, r, T=64, mode=mode, anchor_valid=v)
+    fk, pk = TOPS.chain_anchors(q, r, T=64, anchor_valid=v)
+    for i in range(3):
+        assert torch.equal(scores[i], TC.chain_scores(q[i], r[i], 64,
+                                                      anchor_valid=v[i]))
+        assert torch.equal(w[i], TC.anchor_weights(q[i].shape,
+                                                   TC.ChainParams(), v[i],
+                                                   q.device))
+        f1, p1 = TC.chain_anchors(q[i], r[i], T=64, mode=mode,
+                                  anchor_valid=v[i])
+        assert torch.equal(f[i], f1) and torch.equal(p[i], p1)
+        f1, p1 = TOPS.chain_anchors(q[i], r[i], T=64, anchor_valid=v[i])
+        assert torch.equal(fk[i], f1) and torch.equal(pk[i], p1)

@@ -16,6 +16,7 @@ from repro_torch.core import wavefront as TWF
 from repro_torch.kernels import chain_scan as KC
 from repro_torch.kernels import dtw_wavefront as KT
 from repro_torch.kernels import ops
+from repro_torch.kernels import radix_rank as KR
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +133,86 @@ def test_wavefront_batched_on_the_card(cuda):
                                     32, 32)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("clen", [1, 255, 1024, 16384])
+@pytest.mark.parametrize("n_chunks", [1, 3])
+def test_radix_rank_kernel_exact(cuda, clen, n_chunks):
+    rng = np.random.default_rng(clen + n_chunks)
+    keys = rng.integers(0, 2**32, (n_chunks, clen), dtype=np.uint32)
+    keys[:, ::3] = keys[:, :1]
+    kt = torch.as_tensor(keys.astype(np.int64))
+    for shift in (0, 8, 16, 24):
+        want_r, want_h = KR.radix_rank_plain(kt, shift)
+        before = KR.launches
+        ranks, hists = KR.radix_rank(kt.to(cuda), shift)
+        torch.cuda.synchronize()
+        assert KR.launches == before + 1
+        assert torch.equal(ranks.cpu(), want_r)
+        assert torch.equal(hists.cpu(), want_h)
+
+
+def test_radix_sort_chunks_on_the_card_is_a_stable_sort(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    keys = torch.randint(0, 2**32, (4, 16384), generator=g, device=cuda,
+                         dtype=torch.int64)
+    keys[:, ::5] = keys[:, :1].clone()
+    before = KR.launches
+    sk, sv = ops.radix_sort_chunks(keys)
+    assert KR.launches == before + 4            # one rank pass per byte
+    want_k, want_i = torch.sort(keys, dim=1, stable=True)
+    assert torch.equal(sk, want_k)
+    assert torch.equal(sv.to(torch.int64), want_i)
+
+
+def test_radix_rank_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError):
+        KR.radix_rank(torch.zeros((2, 8), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        KR.radix_rank(torch.zeros(8, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        KR.radix_rank(torch.zeros((8, 2), dtype=torch.int64,
+                                  device=cuda).T)
+
+
+def test_chain_stack_is_one_launch(cuda):
+    from repro_torch.data import genomics
+    sets = [genomics.anchor_set(nv, seed=s, noise=30)
+            for s, nv in ((0, 400), (1, 250), (2, 90))]
+    n = max(len(q) for q, _ in sets)
+    q = torch.as_tensor(np.stack([np.pad(x, (0, n - len(x)))
+                                  for x, _ in sets]))
+    r = torch.as_tensor(np.stack([np.pad(y, (0, n - len(y)),
+                                         constant_values=2**30)
+                                  for _, y in sets]))
+    v = torch.as_tensor(np.stack([np.arange(n) < len(x) for x, _ in sets]))
+    want_f, want_p = ops.chain_anchors(q, r, T=64, anchor_valid=v)
+    before = KC.launches
+    f, p = ops.chain_anchors(q.to(cuda), r.to(cuda), T=64,
+                             anchor_valid=v.to(cuda))
+    torch.cuda.synchronize()
+    assert KC.launches == before + 1
+    assert torch.equal(p.cpu(), want_p)
+    torch.testing.assert_close(f.cpu(), want_f, rtol=1e-5, atol=1e-4)
+
+
+def test_service_on_the_card_batches_tiles(cuda):
+    from repro_torch.runtime import KernelService, Request, ServiceConfig
+    rng = np.random.default_rng(2)
+    reqs = [Request("dtw", {"s": rng.normal(size=n).astype(np.float32),
+                            "r": rng.normal(size=m).astype(np.float32)})
+            for n, m in ((100, 120), (128, 90), (70, 128))]
+    reqs += [Request("chain", {
+        "q": np.sort(rng.integers(0, 400, n)).astype(np.int32),
+        "r": np.sort(rng.integers(0, 5000, n)).astype(np.int32)})
+        for n in (30, 100, 200)]
+    cfg = ServiceConfig(seq_bucket=64, dtw_tile=32, anchor_bucket=256)
+    want = KernelService(cfg, device="cpu").submit(reqs)
+    t0, c0 = KT.launches, KC.launches
+    got = KernelService(cfg, device="cuda").submit(reqs)
+    # one dtw bucket (128 x 128): 4 x 4 tile positions, batch 3 each; one
+    # chain bucket (256 anchors): one chain_scan launch
+    assert (KT.launches - t0, KC.launches - c0) == (16, 1)
+    for w, g in zip(want, got):
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-4)

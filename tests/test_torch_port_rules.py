@@ -54,6 +54,8 @@ def test_read_mapper_imports_with_jax_blocked():
         import repro_torch.apps.read_mapper
         import repro_torch.kernels.ops
         import repro_torch.convert
+        import repro_torch.obs
+        from repro_torch.runtime import KernelService
         print("IMPORT_OK")
     """)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
