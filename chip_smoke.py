@@ -7,14 +7,18 @@ chain and tile kernels, drives one mixed submit through ``KernelService``
 (map, seed, chain, sw, dtw, sort, scan) and holds every result to its
 direct call, sorts the sort traffic through the radix-rank kernel
 (``ops.radix_sort_chunks``), checks kernels-on against kernels-off, and
-times each kernel.
+times each kernel. Then the LM path: RWKV-6 1.6B (``rwkv6-1.6b``) at full
+width, its prefill with the WKV-scan kernel held against the scan's plain
+version in fp32, and bf16 serving through ``launch.serve`` (batch 4,
+2,048-token prompts, 32 greedy tokens) and ``engine.generate`` (chunked
+prefill of two ragged prompts).
 
     python3 chip_smoke.py [--seed 0]
 
 Exits non-zero, printing no result, without a CUDA card or without the
 repository's ``src/`` beside it. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is a JSON object with
-one entry per kernel.
+one entry per kernel and the LM path's serving numbers (``lm``).
 """
 
 from __future__ import annotations
@@ -158,6 +162,7 @@ def check_kernels(dev) -> dict:
                 f"allclose(rtol=1e-5, atol=1e-4)={close} max_abs_err={err}")
             check(close, f"dp_tile dtw {tr}x{tc} {lead} differs")
     errs["radix_rank"] = check_radix_rank(dev)
+    errs["ssm_scan"] = check_ssm_scan(dev)
     return errs
 
 
@@ -191,6 +196,64 @@ def check_radix_rank(dev) -> float:
         log(f"[kernels] radix_sort_chunks (4, {clen}) == torch.sort(stable)"
             f": {same}")
         check(same, f"radix_sort_chunks (4, {clen}) differs from torch.sort")
+    return err
+
+
+SCAN_SHAPES = ((128, 2048, 64, 64),   # the prefill: batch 4 x 32 heads
+               (1, 1000, 16, 16),     # ragged T at the reduced width
+               (3, 96, 8, 24))
+
+
+def wkv_inputs(b, t, dk, dv, g, dev, with_state):
+    """r, w, k, v, u and s0 (or None) for the WKV scan, made on the card:
+    w = sigmoid(N(0, 1) + 2) as in tests/test_kernels_pallas.py."""
+    import torch
+    r = torch.randn((b, t, dk), generator=g, device=dev)
+    w = torch.sigmoid(torch.randn((b, t, dk), generator=g, device=dev) + 2)
+    k = torch.randn((b, t, dk), generator=g, device=dev)
+    v = torch.randn((b, t, dv), generator=g, device=dev)
+    u = 0.5 * torch.randn((dk,), generator=g, device=dev)
+    s0 = (torch.randn((b, dk, dv), generator=g, device=dev) if with_state
+          else None)
+    return r, w, k, v, u, s0
+
+
+def check_ssm_scan(dev) -> float:
+    """ssm_scan against its plain version at rtol = atol = 1e-4, y and the
+    final state, from a zero and from a random state; ops.ssm_scan (T
+    padded to the chunk) the same way."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as KS
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    err = 0.0
+    for shape in SCAN_SHAPES:
+        for with_state in (False, True):
+            ins = wkv_inputs(*shape, g, dev, with_state)
+            want_y, want_s = KS.ssm_scan_plain(*ins)
+            y, s_fin = KS.ssm_scan(*ins)
+            torch.cuda.synchronize()
+            e = max(float((y - want_y).abs().max()),
+                    float((s_fin - want_s).abs().max()))
+            err = max(err, e)
+            close = (torch.allclose(y, want_y, rtol=1e-4, atol=1e-4)
+                     and torch.allclose(s_fin, want_s, rtol=1e-4, atol=1e-4))
+            log(f"[kernels] ssm_scan {shape} s0={'random' if with_state else 0}"
+                f": allclose(rtol=1e-4, atol=1e-4)={close} max_abs_err={e} "
+                f"max|y|={float(want_y.abs().max()):.3f}")
+            check(close, f"ssm_scan {shape} (s0 {with_state}) differs from "
+                  f"its plain version")
+    r, w, k, v, u, _ = wkv_inputs(2, 1000, 16, 16, g, dev, False)
+    want, _ = KS.ssm_scan_plain(r, w, k, v, u)
+    got = ops.ssm_scan(r, w, k, v, u, chunk=64)
+    torch.cuda.synchronize()
+    e = float((got - want).abs().max())
+    err = max(err, e)
+    close = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+    log(f"[kernels] ops.ssm_scan (2, 1000, 16, 16) padded to chunk 64: "
+        f"allclose={close} max_abs_err={e}")
+    check(close, "ops.ssm_scan with T padding differs from the plain scan")
     return err
 
 
@@ -725,13 +788,31 @@ def kernel_line(dev, launches, errs, max_n):
     ]}
 
 
+def device_spans(prof):
+    """(start, end, name) of every device event of a profiler run, sorted."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def busy_us(spans) -> float:
+    """Microseconds in which at least one device event ran."""
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e, _ in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s
+
+
 def device_trace(mapper, read):
     """One read through the kernels under torch.profiler (CUDA activity
     only): the card's busy share of the wall time, and the mean device
     time of one dp_tile launch. Returns None values when the trace holds
     no device events."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -740,20 +821,11 @@ def device_trace(mapper, read):
         mapper.map_read(read)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    spans = device_spans(prof)
     if not spans:
         log("[trace] no device events in the profiler trace: not measured")
         return {"busy_share": None, "tile_device_us": None}
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e, _ in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    busy = busy_us(spans)
     tiles = [e - s for s, e, name in spans if "dp_tile_kernel" in name]
     out = {"busy_share": busy / wall_us,
            "tile_device_us": statistics.mean(tiles) if tiles else None}
@@ -762,6 +834,300 @@ def device_trace(mapper, read):
         f"(share {out['busy_share']:.4f}), {len(spans)} device events, "
         f"{len(tiles)} dp_tile launches of {out['tile_device_us']} us mean")
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 6: the LM path, RWKV-6 1.6B at full width
+# --------------------------------------------------------------------------
+
+LM_ARCH = "rwkv6-1.6b"
+LM_PARAMS = 1_583_990_784     # jax.eval_shape of the reference's init_model
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+GEN_PROMPTS, GEN_CHUNK, GEN_NEW = (1000, 1537), 256, 16
+ON_OFF_RTOL = 1e-3            # of the largest magnitude of each tensor
+DECODE_PROFILE_STEPS = 8
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def perturb_decay(params, g):
+    """Random decay LoRA in every layer. At init ``w_lora_b`` is zero, every
+    decay lies in [0.69, 0.9975] and the clamp to >= e^-1 never bites;
+    with these values some decays fall below e^-1."""
+    for layer in params.layers:
+        layer["rwkv"]["w_lora_a"].normal_(0.0, 0.1, generator=g)
+        layer["rwkv"]["w_lora_b"].normal_(0.0, 0.3, generator=g)
+
+
+def decay_share_below_clamp(params, cfg, tokens) -> float:
+    """Share of layer 0's decays below e^-1 on these tokens."""
+    import math
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as TS
+    with torch.inference_mode():
+        h = L.rmsnorm(params.layers[0]["norm1"],
+                      L.embed(params.embed, tokens, cfg.dtype))
+        *_, w = TS._time_mix_inputs(params.layers[0]["rwkv"], h,
+                                    TS._token_shift(h, None))
+        return float((w < math.exp(-1.0)).float().mean())
+
+
+def lm_kernel_vs_plain(dev, seed) -> dict:
+    """The full-width model in fp32, one prefill of 4 prompts of 2,048
+    tokens with the WKV-scan kernel and with its plain version: last
+    logits and every cache leaf within ON_OFF_RTOL of the tensor's largest
+    magnitude, and the same greedy first tokens."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ssm_scan as KS
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import engine
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH),
+                              dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    t0 = time.perf_counter()
+    params = TT.init_model(cfg, g, dev)
+    perturb_decay(params, g)
+    torch.cuda.synchronize()
+    n = TT.param_count(params)
+    log(f"[lm] {cfg.name} fp32: {n} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(n == LM_PARAMS, f"{cfg.name} has {n} parameters, not {LM_PARAMS}")
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                           device=dev)
+    share = decay_share_below_clamp(params, cfg, tokens)
+    log(f"[lm] share of layer 0's decays below e^-1: {share:.4f}")
+    check(0.0 < share < 1.0, "the decays do not reach both sides of e^-1")
+
+    runs = {}
+    for use in (True, False):
+        KS.launches = 0
+        step = engine.make_prefill_step(cfg, 0, use_kernels=use)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        runs[use] = (logits, caches, (time.perf_counter() - t0) * 1e3,
+                     KS.launches)
+    (lg_on, c_on, ms_on, n_on), (lg_off, c_off, ms_off, n_off) = \
+        runs[True], runs[False]
+    check(n_on == cfg.num_layers and n_off == 0,
+          f"ssm_scan launched {n_on} (kernels on) and {n_off} (off) times, "
+          f"expected {cfg.num_layers} and 0")
+    check(bool(torch.isfinite(lg_on).all()), "non-finite fp32 logits")
+    scale = float(lg_off.abs().max())
+    err = float((lg_on - lg_off).abs().max())
+    log(f"[lm] fp32 prefill {tuple(tokens.shape)}: kernels on {ms_on:.1f} ms "
+        f"({n_on} ssm_scan launches), off {ms_off:.1f} ms; last logits "
+        f"max_abs_err {err} of max |logit| {scale:.4f}")
+    check(err <= ON_OFF_RTOL * scale,
+          f"fp32 logits kernels on/off differ by {err} > {ON_OFF_RTOL} * "
+          f"{scale}")
+    cache_rel = 0.0
+    for (path, a), (_, b) in zip(tree_leaves(c_on), tree_leaves(c_off)):
+        e, m = float((a - b).abs().max()), float(b.abs().max())
+        cache_rel = max(cache_rel, e / m if m else e)
+        log(f"[lm] cache {path} {tuple(a.shape)}: max_abs_err {e} of max "
+            f"{m:.4f}")
+        check(e <= ON_OFF_RTOL * m, f"cache leaf {path} kernels on/off "
+              f"differs by {e} > {ON_OFF_RTOL} * {m}")
+    first_on = torch.argmax(lg_on[:, -1], dim=-1)
+    first_off = torch.argmax(lg_off[:, -1], dim=-1)
+    check(torch.equal(first_on, first_off),
+          f"greedy first tokens differ: {first_on.tolist()} vs "
+          f"{first_off.tolist()}")
+    log(f"[lm] greedy first tokens equal: {first_on.tolist()}")
+    del params, runs, lg_on, c_on, lg_off, c_off
+    torch.cuda.empty_cache()
+    return {"logits_max_abs_err": err, "logits_max_abs": scale,
+            "cache_max_rel_err": cache_rel, "decay_share_below_clamp": share,
+            "prefill_ms_kernel": ms_on, "prefill_ms_plain": ms_off}
+
+
+def profiled(fn):
+    """fn() under torch.profiler (CUDA activity), ended by a synchronize:
+    (wall us, device spans)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    return wall, device_spans(prof)
+
+
+def lm_serving(dev, seed) -> dict:
+    """bf16 serving at full width through the entry points: launch.serve's
+    main path, then engine.generate for two ragged prompts with chunked
+    prefill. Each path is driven with the launch count at 0 and read just
+    after; then warm timings and profiles of a prefill and a decode loop."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ssm_scan as KS
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import engine
+
+    argv = ["--arch", LM_ARCH, "--full", "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN),
+            "--seed", str(seed)]
+    torch.cuda.synchronize()
+    KS.launches = 0
+    res = serve.run(argv)
+    serve_launches = KS.launches
+    cfg, params = res["cfg"], res["params"]
+    n = TT.param_count(params)
+    log(f"[lm] launch.serve {' '.join(argv)}: {n} parameters, dtype "
+        f"{cfg.dtype}, {serve_launches} ssm_scan launches")
+    check(n == LM_PARAMS, f"launch.serve's model has {n} parameters")
+    check(serve_launches == cfg.num_layers,
+          f"ssm_scan launched {serve_launches} times in one prefill, "
+          f"expected {cfg.num_layers}")
+    gen = res["generated"]
+    check(tuple(gen.shape) == (LM_BATCH, LM_GEN)
+          and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+          f"generated tokens {tuple(gen.shape)} out of shape or range")
+    check(bool(torch.isfinite(res["logits"]).all()), "non-finite logits")
+    steps = res["decode_steps"]
+    out = {"arch": LM_ARCH, "params": n,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+           "prefill_ms_first_call": res["prefill_ms"],
+           "decode_ms_per_step": res["decode_ms"] / steps,
+           "decode_tok_s": LM_BATCH * steps / (res["decode_ms"] / 1e3)}
+
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    prompts = [torch.randint(0, cfg.vocab, (ln,), generator=g, device=dev)
+               for ln in GEN_PROMPTS]
+    chunks = sum((ln - 1) // GEN_CHUNK for ln in GEN_PROMPTS)
+    torch.cuda.synchronize()
+    KS.launches = 0
+    gen_ms, streams = [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        toks, reason = engine.generate(params, cfg, p.cpu().numpy(), GEN_NEW,
+                                       prefill_chunk=GEN_CHUNK)
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+        streams.append(toks)
+        check(toks.shape == (GEN_NEW,) and reason == "length"
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"generate returned {toks} ({reason})")
+    gen_launches = KS.launches
+    log(f"[lm] generate prompts {GEN_PROMPTS}, prefill_chunk {GEN_CHUNK}, "
+        f"{GEN_NEW} new tokens: {[round(x, 3) for x in gen_ms]} ms per "
+        f"request; {gen_launches} ssm_scan launches ({chunks} chunks)")
+    check(gen_launches == cfg.num_layers * chunks,
+          f"ssm_scan launched {gen_launches} times in generate, expected "
+          f"{cfg.num_layers} per chunk x {chunks}")
+    out.update({"generate_prompts": list(GEN_PROMPTS),
+                "generate_chunk": GEN_CHUNK, "generate_new": GEN_NEW,
+                "generate_ms": gen_ms,
+                "launches": {"serve": serve_launches,
+                             "generate": gen_launches}})
+
+    # a whole-prompt prefill + decode per request: another chunk policy,
+    # so agreement is reported, not required (fp32 sums reassociate)
+    prefill1 = engine.make_prefill_step(cfg, 0)
+    decode = engine.make_decode_step(cfg)
+    agree = []
+    for p, got in zip(prompts, streams):
+        lg, c = prefill1(params, {"tokens": p[None]})
+        tok = engine.sample_token(lg)
+        seq = [tok]
+        for i in range(GEN_NEW - 1):
+            tok, lg, c = decode(params, c, {"tokens": tok[:, None]},
+                                len(p) + i)
+            seq.append(tok)
+        agree.append(int(np.sum(torch.cat(seq).cpu().numpy() == got)))
+    log(f"[lm] generate vs one prefill + decode per request: {agree} of "
+        f"{GEN_NEW} tokens agree (not gated)")
+    out["generate_vs_prefill_decode_agree"] = agree
+
+    # warm timings and the card's busy share
+    prefill = engine.make_prefill_step(cfg, 0)
+    batch = {"tokens": res["prompts"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    wall, spans = profiled(lambda: prefill(params, batch))
+    scans = [e - s for s, e, name in spans if "ssm_scan_kernel" in name]
+    tok = res["generated"][:, -1]
+
+    def decode_loop():
+        nonlocal caches, tok
+        for i in range(DECODE_PROFILE_STEPS):
+            tok, _, caches = decode(params, caches, {"tokens": tok[:, None]},
+                                    LM_PROMPT + i)
+    dwall, dspans = profiled(decode_loop)
+    out.update({
+        "prefill_ms": warm_ms,
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / (warm_ms / 1e3),
+        "prefill_busy_share": busy_us(spans) / wall if spans else None,
+        "ssm_scan_device_us": statistics.mean(scans) if scans else None,
+        "ssm_scan_device_us_per_prefill": sum(scans) if scans else None,
+        "decode_busy_share": busy_us(dspans) / dwall if dspans else None,
+        "decode_profiled_ms_per_step": dwall / 1e3 / DECODE_PROFILE_STEPS})
+    log(f"[lm] bf16 prefill {LM_BATCH}x{LM_PROMPT}: first call "
+        f"{res['prefill_ms']:.1f} ms, warm {warm_ms:.1f} ms "
+        f"({out['prefill_tok_s']:.0f} tok/s); under the profiler "
+        f"{wall / 1e3:.1f} ms, card busy {out['prefill_busy_share']}, "
+        f"{len(scans)} ssm_scan launches of {out['ssm_scan_device_us']} us "
+        f"device time")
+    log(f"[lm] bf16 decode batch {LM_BATCH}: {out['decode_ms_per_step']:.3f} "
+        f"ms per step ({out['decode_tok_s']:.1f} tok/s) in launch.serve; "
+        f"{DECODE_PROFILE_STEPS} steps under the profiler "
+        f"{out['decode_profiled_ms_per_step']:.3f} ms per step, card busy "
+        f"{out['decode_busy_share']}")
+    del params, caches, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_scan_entry(dev, errs, lm) -> dict:
+    """Times of ssm_scan at the prefill shape beside its bound, its plain
+    version and the chunked torch form (core.linear_attn.wkv_chunked)."""
+    import torch
+    from repro_torch.core import linear_attn as TLA
+    from repro_torch.kernels import ssm_scan as KS
+
+    b, t, dk, dv = SCAN_SHAPES[0]
+    g = torch.Generator(device=dev).manual_seed(8)
+    r, w, k, v, _, _ = wkv_inputs(b, t, dk, dv, g, dev, False)
+    ms = time_cuda(lambda: KS.ssm_scan(r, w, k, v), reps=20)
+    plain = time_cuda(lambda: KS.ssm_scan_plain(r, w, k, v), reps=1,
+                      rounds=3)
+    chunked = time_cuda(lambda: TLA.wkv_chunked(r, w, k, v, None), reps=5)
+    # r, w, k, v read once; y and the final state written once; per step
+    # and state element a multiply-add for the decay and the k v product,
+    # and a multiply-add for the readout
+    n_bytes = 4 * (b * t * (3 * dk + dv) + b * t * dv + b * dk * dv)
+    b_ms, b_by = bound(n_bytes, 5 * b * t * dk * dv)
+    log(f"[time] ssm_scan {SCAN_SHAPES[0]}: kernel {ms:.4f} ms, plain "
+        f"{plain:.3f} ms, wkv_chunked {chunked:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}); {ms / t * 1e6:.1f} ns per serial step")
+    launches = lm["launches"]["serve"] + lm["launches"]["generate"]
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:58",
+            "launches": launches, "max_abs_err": errs["ssm_scan"], "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": list(SCAN_SHAPES[0]),
+            "chunked_torch_ms": chunked,
+            "device_us": lm["ssm_scan_device_us"]}
 
 
 def main(argv=None) -> int:
@@ -782,6 +1148,7 @@ def main(argv=None) -> int:
     from repro_torch.data import genomics
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     log(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
@@ -824,6 +1191,17 @@ def main(argv=None) -> int:
     trace = device_trace(mapper, reads[1][1][0][:2000])
     line["kernels"][1]["tile_device_us"] = trace["tile_device_us"]
     line["align_busy_share"] = trace["busy_share"]
+    del mapper
+    torch.cuda.empty_cache()
+
+    t_lm = time.perf_counter()
+    on_off = lm_kernel_vs_plain(dev, args.seed)
+    lm = lm_serving(dev, args.seed)
+    lm["fp32_kernel_vs_plain"] = on_off
+    line["kernels"].append(ssm_scan_entry(dev, errs, lm))
+    line["lm"] = lm
+    log(f"[lm] phase took {time.perf_counter() - t_lm:.1f} s")
+    log(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 They plug the kernels into the core engines: ``chain_scan`` /
 ``chain_anchors`` into the chain stage, ``dp_tile`` (the wavefront tile-fn)
 into ``core.wavefront`` through ``make_sw_tile_fn`` and ``dtw_tile_fn``
-(``sw_tiled``, ``dtw_tiled``), and ``radix_rank`` into the chunk-parallel
-LSD passes of ``radix_sort_chunks``.
+(``sw_tiled``, ``dtw_tiled``), ``radix_rank`` into the chunk-parallel
+LSD passes of ``radix_sort_chunks``, and ``ssm_scan`` (the WKV scan) behind
+the reference's T-padding wrapper.
 The kernel emits its tile row-major, so no diagonal-major relayout follows,
 and the chain band is not padded to 128 lanes: that was a TPU register
 artefact, and the kernel takes any T <= 128.
@@ -22,6 +23,24 @@ from repro_torch.core import dtw as cdtw
 from repro_torch.kernels.chain_scan import chain_scan  # noqa: F401
 from repro_torch.kernels.dtw_wavefront import dp_tile
 from repro_torch.kernels.radix_rank import buckets, radix_rank
+from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_scan
+
+
+def ssm_scan(r, w, k, v, u=None, chunk: int = 64):
+    """WKV scan with T padded to a multiple of ``chunk`` (w = 1, r = k = v =
+    0 in the pad), as the reference's wrapper pads for its TPU grid; the
+    kernel itself takes any T. Shapes (B, T, d*); returns y (B, T, dv)
+    fp32, the state from zero, the final state dropped."""
+    b, t, dk = r.shape
+    pad = (-t) % chunk
+    if pad:
+        padk = r.new_zeros((b, pad, dk))
+        r = torch.cat([r, padk], dim=1)
+        w = torch.cat([w, w.new_ones((b, pad, dk))], dim=1)
+        k = torch.cat([k, k.new_zeros((b, pad, dk))], dim=1)
+        v = torch.cat([v, v.new_zeros((b, pad, v.shape[-1]))], dim=1)
+    y, _ = _ssm_scan(r, w, k, v, u)
+    return y[:, :t]
 
 
 def chain_anchors(q, r, T: int = 64, params=None, anchor_valid=None):

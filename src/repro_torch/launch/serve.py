@@ -1,0 +1,114 @@
+"""Serving launcher: batched prefill + decode (port of
+``repro.launch.serve``).
+
+A batch of random prompts is prefilled once (on the card, the WKV scan of
+every layer is one ``ssm_scan`` kernel launch), then decoded token by
+token: the decode loop is the 1-D dependency-bound recurrence of serving.
+RWKV decodes with O(1) state. Weights are random, drawn from ``--seed``.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --full    # on the card
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import configs
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.serve import engine
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="rwkv6-1.6b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--cache-slots", type=int, default=0,
+                    help="KV slots (0 = prompt+gen)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    return ap.parse_args(argv)
+
+
+def _sync(dev: torch.device):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(argv=None) -> Dict[str, Any]:
+    """What ``main`` does, returning its prompts, stream and timings."""
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = (configs.reduced_config(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(f"{cfg.name}: input_mode "
+                                  f"{cfg.input_mode!r} is not ported yet")
+    slots = args.cache_slots or (args.prompt_len + args.gen)
+    # weights from seed, prompts from seed + 1, sampling noise from seed + 2
+    params = T.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    b, s = args.batch, args.prompt_len
+    tokens = torch.randint(
+        0, cfg.vocab, (b, s), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
+    generator = (torch.Generator(device=dev).manual_seed(args.seed + 2)
+                 if args.temperature > 0 else None)
+
+    prefill = engine.make_prefill_step(cfg, cache_slots=slots)
+    decode = engine.make_decode_step(cfg, args.temperature)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": tokens})
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    tok = engine.sample_token(logits)
+
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        tok, logits, caches = decode(params, caches, {"tokens": tok[:, None]},
+                                     s + i, generator)
+        out_tokens.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    gen = torch.stack(out_tokens, dim=1)
+    steps = max(args.gen - 1, 0)
+    print(f"[serve] arch={cfg.name} batch={b} prompt={s} gen={args.gen} "
+          f"dtype={str(cfg.dtype).replace('torch.', '')} device={dev}")
+    print(f"[serve] prefill: {t_prefill*1e3:.1f} ms "
+          f"({b*s/max(t_prefill,1e-9):.0f} tok/s)")
+    print(f"[serve] decode:  {t_decode*1e3:.1f} ms "
+          f"({b*steps/max(t_decode,1e-9):.1f} tok/s)")
+    for row in range(b):
+        print(f"[serve] row {row}: {gen[row].tolist()}")
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("non-finite logits")
+    return {"cfg": cfg, "params": params, "prompts": tokens,
+            "generated": gen, "logits": logits, "caches": caches,
+            "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
+            "decode_steps": steps}
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -17,6 +17,7 @@ from repro_torch.kernels import chain_scan as KC
 from repro_torch.kernels import dtw_wavefront as KT
 from repro_torch.kernels import ops
 from repro_torch.kernels import radix_rank as KR
+from repro_torch.kernels import ssm_scan as KS
 
 pytestmark = pytest.mark.cuda
 
@@ -216,3 +217,79 @@ def test_service_on_the_card_batches_tiles(cuda):
     for w, g in zip(want, got):
         for k in w:
             np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-4)
+
+
+def _wkv_inputs(b, t, dk, dv, seed, with_state):
+    g = torch.Generator().manual_seed(seed)
+    r = torch.randn((b, t, dk), generator=g)
+    w = torch.sigmoid(torch.randn((b, t, dk), generator=g) + 2.0)
+    k = torch.randn((b, t, dk), generator=g)
+    v = torch.randn((b, t, dv), generator=g)
+    u = 0.5 * torch.randn((dk,), generator=g)
+    s0 = torch.randn((b, dk, dv), generator=g) if with_state else None
+    return r, w, k, v, u, s0
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,t,dk,dv", [(128, 2048, 64, 64), (1, 1000, 16, 16),
+                                       (3, 96, 8, 24)])
+def test_ssm_scan_kernel_close(cuda, b, t, dk, dv, with_state):
+    ins = _wkv_inputs(b, t, dk, dv, b + t, with_state)
+    dev_ins = [None if x is None else x.to(cuda) for x in ins]
+    want_y, want_s = KS.ssm_scan_plain(*dev_ins)
+    before = KS.launches
+    y, s_fin = KS.ssm_scan(*dev_ins)
+    torch.cuda.synchronize()
+    assert KS.launches == before + 1
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_fin, want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_scan_ops_pads_t_on_the_card(cuda):
+    r, w, k, v, u, _ = _wkv_inputs(2, 50, 16, 16, 0, False)
+    want = ops.ssm_scan(r, w, k, v, u, chunk=16)
+    got = ops.ssm_scan(r.to(cuda), w.to(cuda), k.to(cuda), v.to(cuda),
+                       u.to(cuda), chunk=16)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
+    z = torch.zeros
+    with pytest.raises(ValueError, match="dk"):
+        KS.ssm_scan(z(1, 8, 65, device=cuda), z(1, 8, 65, device=cuda),
+                    z(1, 8, 65, device=cuda), z(1, 8, 64, device=cuda))
+    with pytest.raises(ValueError, match="dv"):
+        KS.ssm_scan(z(1, 8, 64, device=cuda), z(1, 8, 64, device=cuda),
+                    z(1, 8, 64, device=cuda), z(1, 8, 129, device=cuda))
+    with pytest.raises(ValueError, match="on cpu"):
+        KS.ssm_scan(z(1, 8, 16, device=cuda), z(1, 8, 16),
+                    z(1, 8, 16, device=cuda), z(1, 8, 16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        KS.ssm_scan(z(1, 16, 8, device=cuda).transpose(1, 2),
+                    z(1, 8, 16, device=cuda), z(1, 8, 16, device=cuda),
+                    z(1, 8, 16, device=cuda))
+
+
+def test_rwkv_prefill_is_one_launch_per_layer(cuda):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(configs.reduced_config("rwkv6-1.6b"),
+                              dtype=torch.float32)
+    params = TT.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda)
+    before = KS.launches
+    on, _, c_on = TT.apply_model(params, cfg, tokens=toks[:, :32],
+                                 mode="prefill")
+    assert KS.launches == before + cfg.num_layers
+    off, _, c_off = TT.apply_model(params, cfg, tokens=toks[:, :32],
+                                   mode="prefill", use_kernels=False)
+    assert KS.launches == before + cfg.num_layers
+    torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(c_on, c_off, rtol=1e-4, atol=1e-4)
+    _, _, c = TT.apply_model(params, cfg, tokens=toks[:, 32:40],
+                             mode="decode", caches=c_on)   # a chunk of 8
+    assert KS.launches == before + 2 * cfg.num_layers
+    TT.apply_model(params, cfg, tokens=toks[:, :1], mode="decode", caches=c)
+    assert KS.launches == before + 2 * cfg.num_layers   # decode: plain torch

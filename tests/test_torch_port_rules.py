@@ -56,6 +56,9 @@ def test_read_mapper_imports_with_jax_blocked():
         import repro_torch.convert
         import repro_torch.obs
         from repro_torch.runtime import KernelService
+        import repro_torch.models.transformer
+        import repro_torch.serve.engine
+        import repro_torch.launch.serve
         print("IMPORT_OK")
     """)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
