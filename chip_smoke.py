@@ -7,18 +7,21 @@ chain and tile kernels, drives one mixed submit through ``KernelService``
 (map, seed, chain, sw, dtw, sort, scan) and holds every result to its
 direct call, sorts the sort traffic through the radix-rank kernel
 (``ops.radix_sort_chunks``), checks kernels-on against kernels-off, and
-times each kernel. Then the LM path: RWKV-6 1.6B (``rwkv6-1.6b``) at full
-width, its prefill with the WKV-scan kernel held against the scan's plain
-version in fp32, and bf16 serving through ``launch.serve`` (batch 4,
-2,048-token prompts, 32 greedy tokens) and ``engine.generate`` (chunked
-prefill of two ragged prompts).
+times each kernel. Then the LM paths at full width: RWKV-6 1.6B
+(``rwkv6-1.6b``) and gemma-2b (``gemma-2b``). For each, an fp32 prefill with
+the kernel (the WKV scan, flash attention) held against the plain version,
+one prompt fed through ``generate``'s chunk path and through one prefill
+with the last logits gated, and bf16 serving through ``launch.serve``
+(batch 4, 2,048-token prompts, 32 greedy tokens) and ``engine.generate``
+(chunked prefill of two ragged prompts).
 
     python3 chip_smoke.py [--seed 0]
 
 Exits non-zero, printing no result, without a CUDA card or without the
 repository's ``src/`` beside it. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is a JSON object with
-one entry per kernel and the LM path's serving numbers (``lm``).
+one entry per kernel and the LM paths' serving numbers (``lm``,
+``attn_lm``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ LENGTH_SCALE = 10            # genomics.PROFILES hold Table IV lengths / 10
 READS_PER_PROFILE = 2        # after one warm-up read
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 NEG = -1e18
 
 
@@ -82,9 +86,9 @@ def time_cuda(fn, reps: int, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -163,6 +167,7 @@ def check_kernels(dev) -> dict:
             check(close, f"dp_tile dtw {tr}x{tc} {lead} differs")
     errs["radix_rank"] = check_radix_rank(dev)
     errs["ssm_scan"] = check_ssm_scan(dev)
+    errs["flash_attention"], errs["flash_shapes"] = check_flash_attention(dev)
     return errs
 
 
@@ -255,6 +260,61 @@ def check_ssm_scan(dev) -> float:
         f"allclose={close} max_abs_err={e}")
     check(close, "ops.ssm_scan with T padding differs from the plain scan")
     return err
+
+
+# (B, H, KV, Sq, Skv, hd, window) of the flash_attention checks
+FLASH_SHAPES = ((2, 4, 4, 128, 128, 64, 0),       # the reference's sweep: MHA
+                (1, 8, 2, 256, 256, 32, 0),       # GQA 4:1
+                (1, 4, 1, 256, 256, 64, 0),       # MQA
+                (1, 4, 2, 256, 256, 64, 96),      # window 96
+                (2, 4, 2, 300, 300, 16, 0),       # ragged, hd 16
+                (1, 8, 1, 1537, 1537, 256, 0),    # ragged at gemma-2b's heads
+                (2, 32, 32, 1024, 1024, 128, 0),  # hd 128: deepseek-7b (MHA)
+                (1, 40, 8, 1000, 1000, 128, 0),   # hd 128: qwen2.5-14b, ragged
+                (1, 16, 8, 2048, 2048, 256, 1024),  # gemma3-12b's local layers
+                (4, 8, 1, 2048, 2048, 256, 0))    # gemma-2b's prefill
+# kernel against plain version: in fp32 both sum in fp32 in other orders
+# (errors near 1e-6 on outputs near 1); in bf16 both compute in fp32 from
+# the same bf16 inputs and round the output once, so they differ by about
+# one bf16 ulp of |out| <= 4 (2^-8 * 4 = 0.016) at most
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def attn_inputs(shape, dtype, g, dev):
+    import torch
+    b, h, kvh, sq, skv, hd, _ = shape
+    return (torch.randn((b, h, sq, hd), generator=g, device=dev).to(dtype),
+            torch.randn((b, kvh, skv, hd), generator=g, device=dev).to(dtype),
+            torch.randn((b, kvh, skv, hd), generator=g, device=dev).to(dtype))
+
+
+def check_flash_attention(dev):
+    """flash_attention against its plain version, fp32 and bf16, at every
+    shape of FLASH_SHAPES, within FLASH_TOL (rtol = atol)."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    err, rows = 0.0, []
+    for shape in FLASH_SHAPES:
+        for name, tol in FLASH_TOL.items():
+            q, k, v = attn_inputs(shape, getattr(torch, name), g, dev)
+            want = KF.flash_attention_plain(q, k, v, shape[-1]).float()
+            got = KF.flash_attention(q, k, v, shape[-1])
+            torch.cuda.synchronize()
+            e = float((got.float() - want).abs().max())
+            err = max(err, e)
+            close = (got.dtype == q.dtype and torch.allclose(
+                got.float(), want, rtol=tol, atol=tol))
+            rows.append({"shape": list(shape), "dtype": name, "ok": close,
+                         "max_abs_err": e})
+            log(f"[kernels] flash_attention {shape} {name}: allclose(rtol="
+                f"atol={tol})={close} max_abs_err={e} "
+                f"max|out|={float(want.abs().max()):.3f}")
+            check(close, f"flash_attention {shape} {name} differs from its "
+                  "plain version")
+            del q, k, v, want, got
+    return err, rows
 
 
 # --------------------------------------------------------------------------
@@ -879,6 +939,68 @@ def decay_share_below_clamp(params, cfg, tokens) -> float:
         return float((w < math.exp(-1.0)).float().mean())
 
 
+
+# one prompt through generate's chunk path and through one prefill, fp32
+GVP_PROMPT, GVP_CHUNK = 200, 64     # 3 chunks of 64, then 8 decode steps
+# gate on max |generate-path logits - prefill logits| / max |prefill logits|:
+# RWKV carries fp32 state either way, so only fp32 sums reassociate (the
+# kernel-vs-plain gate's 1e-3); attention's chunks and decode steps attend
+# over the bf16 KV cache, the prefill over unrounded fp32 k and v (as in the
+# reference), one rounding of 2^-9 on every cached value: 2.4e-3 on the
+# reduced gemma-2b on the CPU, so 3e-2 leaves room for 18 layers at full
+# width, while a wrong position, mask or cache entry moves the last logits
+# by a large part of their magnitude
+GVP_RTOL = {"rwkv": 1e-3, "attn": 3e-2}
+
+
+def generate_vs_prefill(params, cfg, dev, seed, rtol) -> dict:
+    """The prompt consumed as engine.generate consumes it (full chunks of
+    GVP_CHUNK through make_chunk_step over the first L-1 tokens, the rest
+    through make_slot_decode_step) up to its last position, against one
+    make_prefill_step over the whole prompt: the last position's logits
+    within rtol of the largest prefill logit."""
+    import torch
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import engine
+
+    g = torch.Generator(device=dev).manual_seed(seed + 30)
+    prompt = torch.randint(0, cfg.vocab, (GVP_PROMPT,), generator=g,
+                           device=dev)
+    chunk = engine.make_chunk_step(cfg)
+    step = engine.make_slot_decode_step(cfg)
+    caches = TT.init_caches(cfg, 1, GVP_PROMPT + 1, per_slot_pos=True,
+                            device=dev)
+    at = lambda p: torch.tensor([p], device=dev)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx = n_chunks = 0
+    while GVP_PROMPT - 1 - ctx >= GVP_CHUNK:
+        _, caches = chunk(params, caches, prompt[None, ctx:ctx + GVP_CHUNK],
+                          at(ctx))
+        ctx += GVP_CHUNK
+        n_chunks += 1
+    n_steps = GVP_PROMPT - ctx
+    while ctx < GVP_PROMPT:
+        _, lg, caches = step(params, caches, prompt[None, ctx:ctx + 1],
+                             at(ctx), torch.zeros(1, device=dev), None)
+        ctx += 1
+    want, _ = engine.make_prefill_step(cfg, 0)(params,
+                                               {"tokens": prompt[None]})
+    torch.cuda.synchronize()
+    err = float((lg[0, -1] - want[0, -1]).abs().max())
+    scale = float(want.abs().max())
+    log(f"[gen-vs-prefill] {cfg.name} fp32, prompt {GVP_PROMPT}: {n_chunks} "
+        f"chunks of {GVP_CHUNK} + {n_steps} decode steps against one "
+        f"prefill: last logits max_abs_err {err} of max |logit| "
+        f"{scale:.4f} ({err / scale:.3e} relative, gate {rtol}); "
+        f"{(time.perf_counter() - t0):.1f} s")
+    check(err <= rtol * scale, f"{cfg.name}: generate's chunk path and one "
+          f"prefill differ by {err} > {rtol} * {scale}")
+    return {"prompt": GVP_PROMPT, "chunk": GVP_CHUNK, "chunks": n_chunks,
+            "decode_steps": n_steps, "max_abs_err": err,
+            "max_abs_logit": scale, "rel_err": err / scale, "rtol": rtol}
+
+
 def lm_kernel_vs_plain(dev, seed) -> dict:
     """The full-width model in fp32, one prefill of 4 prompts of 2,048
     tokens with the WKV-scan kernel and with its plain version: last
@@ -946,11 +1068,14 @@ def lm_kernel_vs_plain(dev, seed) -> dict:
           f"greedy first tokens differ: {first_on.tolist()} vs "
           f"{first_off.tolist()}")
     log(f"[lm] greedy first tokens equal: {first_on.tolist()}")
-    del params, runs, lg_on, c_on, lg_off, c_off
+    del runs, lg_on, c_on, lg_off, c_off
+    gvp = generate_vs_prefill(params, cfg, dev, seed, GVP_RTOL["rwkv"])
+    del params
     torch.cuda.empty_cache()
     return {"logits_max_abs_err": err, "logits_max_abs": scale,
             "cache_max_rel_err": cache_rel, "decay_share_below_clamp": share,
-            "prefill_ms_kernel": ms_on, "prefill_ms_plain": ms_off}
+            "prefill_ms_kernel": ms_on, "prefill_ms_plain": ms_off,
+            "generate_vs_prefill": gvp}
 
 
 def profiled(fn):
@@ -1130,6 +1255,272 @@ def ssm_scan_entry(dev, errs, lm) -> dict:
             "device_us": lm["ssm_scan_device_us"]}
 
 
+# --------------------------------------------------------------------------
+# phase 7: the attention LM, gemma-2b at full width
+# --------------------------------------------------------------------------
+
+ATTN_ARCH = "gemma-2b"
+ATTN_PARAMS = 2_506_172_416   # jax.eval_shape of the reference's init_model
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each value's magnitude (8 significant bits)."""
+    import torch
+    mag = torch.clamp_min(x.abs(), 1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def attn_kernel_vs_plain(dev, seed) -> dict:
+    """gemma-2b at full width in fp32: one prefill of 4 prompts of 2,048
+    tokens with flash_attention and with the plain blockwise_attention
+    (use_kernels=False). Last logits within ON_OFF_RTOL of the largest, the
+    same greedy first tokens, cache positions equal, and every bf16 cache
+    value within one bf16 ulp plus ON_OFF_RTOL of the leaf's largest value
+    (the fp32 k and v before rounding agree to about 1e-5 after 18 layers,
+    so a value on a rounding boundary may round the other way). Then the
+    same weights through generate's chunk path against one prefill."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import engine
+
+    cfg = dataclasses.replace(configs.get_config(ATTN_ARCH),
+                              dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    t0 = time.perf_counter()
+    params = TT.init_model(cfg, g, dev)
+    torch.cuda.synchronize()
+    n = TT.param_count(params)
+    log(f"[attn] {cfg.name} fp32: {n} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(n == ATTN_PARAMS, f"{cfg.name} has {n} parameters, not "
+          f"{ATTN_PARAMS}")
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                           device=dev)
+    runs = {}
+    for use in (True, False):
+        step = engine.make_prefill_step(cfg, LM_PROMPT + LM_GEN,
+                                        use_kernels=use)
+        torch.cuda.synchronize()
+        KF.launches = 0
+        t0 = time.perf_counter()
+        logits, caches = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        runs[use] = (logits, caches, (time.perf_counter() - t0) * 1e3,
+                     KF.launches)
+    (lg_on, c_on, ms_on, n_on), (lg_off, c_off, ms_off, n_off) = \
+        runs[True], runs[False]
+    check(n_on == cfg.num_layers and n_off == 0,
+          f"flash_attention launched {n_on} (kernels on) and {n_off} (off) "
+          f"times, expected {cfg.num_layers} and 0")
+    check(bool(torch.isfinite(lg_on).all()), "non-finite fp32 logits")
+    scale = float(lg_off.abs().max())
+    err = float((lg_on - lg_off).abs().max())
+    log(f"[attn] fp32 prefill {tuple(tokens.shape)}: kernel {ms_on:.1f} ms "
+        f"({n_on} flash_attention launches), blockwise {ms_off:.1f} ms; last "
+        f"logits max_abs_err {err} of max |logit| {scale:.4f}")
+    check(err <= ON_OFF_RTOL * scale, f"fp32 logits kernel/blockwise differ "
+          f"by {err} > {ON_OFF_RTOL} * {scale}")
+    a, b = c_on["p0"]["attn"], c_off["p0"]["attn"]
+    check(torch.equal(a.pos, b.pos), "cache positions differ")
+    cache = {}
+    for name in ("k", "v"):
+        x, y = getattr(a, name).float(), getattr(b, name).float()
+        m = float(y.abs().max())
+        diff = (x - y).abs()
+        ok = bool((diff <= bf16_ulp(torch.maximum(x.abs(), y.abs()))
+                   + ON_OFF_RTOL * m).all())
+        share = float((diff > 0).float().mean())
+        cache[name] = {"max_abs_err": float(diff.max()), "max_abs": m,
+                       "share_differing": share}
+        log(f"[attn] cache {name} {tuple(x.shape)} bf16: max_abs_err "
+            f"{float(diff.max())} of max {m:.4f}, {share:.6f} of the values "
+            f"differ; within one bf16 ulp + {ON_OFF_RTOL} * max: {ok}")
+        check(ok, f"cache leaf {name} kernel/blockwise differs beyond one "
+              f"bf16 ulp + {ON_OFF_RTOL} * {m}")
+    first_on = torch.argmax(lg_on[:, -1], dim=-1)
+    first_off = torch.argmax(lg_off[:, -1], dim=-1)
+    check(torch.equal(first_on, first_off),
+          f"greedy first tokens differ: {first_on.tolist()} vs "
+          f"{first_off.tolist()}")
+    log(f"[attn] greedy first tokens equal: {first_on.tolist()}")
+    del runs, lg_on, c_on, lg_off, c_off, a, b
+    torch.cuda.empty_cache()
+    gvp = generate_vs_prefill(params, cfg, dev, seed, GVP_RTOL["attn"])
+    del params
+    torch.cuda.empty_cache()
+    return {"logits_max_abs_err": err, "logits_max_abs": scale,
+            "cache": cache, "launches": {"kernel": n_on, "blockwise": n_off},
+            "prefill_ms_kernel": ms_on, "prefill_ms_blockwise": ms_off,
+            "generate_vs_prefill": gvp}
+
+
+def attn_serving(dev, seed) -> dict:
+    """bf16 serving of gemma-2b at full width through the entry points:
+    launch.serve's main path, then engine.generate for two ragged prompts
+    with chunked prefill, each driven with the flash_attention count at 0
+    and read just after; then a warm prefill and a decode loop under the
+    profiler."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import engine
+
+    argv = ["--arch", ATTN_ARCH, "--full", "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN),
+            "--seed", str(seed)]
+    torch.cuda.synchronize()
+    KF.launches = 0
+    res = serve.run(argv)
+    serve_launches = KF.launches
+    cfg, params = res["cfg"], res["params"]
+    n = TT.param_count(params)
+    log(f"[attn] launch.serve {' '.join(argv)}: {n} parameters, dtype "
+        f"{cfg.dtype}, {serve_launches} flash_attention launches")
+    check(n == ATTN_PARAMS, f"launch.serve's model has {n} parameters")
+    check(serve_launches == cfg.num_layers,
+          f"flash_attention launched {serve_launches} times in one prefill, "
+          f"expected {cfg.num_layers}")
+    gen = res["generated"]
+    check(tuple(gen.shape) == (LM_BATCH, LM_GEN)
+          and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+          f"generated tokens {tuple(gen.shape)} out of shape or range")
+    check(bool(torch.isfinite(res["logits"]).all()), "non-finite logits")
+    steps = res["decode_steps"]
+    out = {"arch": ATTN_ARCH, "params": n,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+           "prefill_ms_first_call": res["prefill_ms"],
+           "decode_ms_per_step": res["decode_ms"] / steps,
+           "decode_tok_s": LM_BATCH * steps / (res["decode_ms"] / 1e3)}
+
+    g = torch.Generator(device=dev).manual_seed(seed + 50)
+    prompts = [torch.randint(0, cfg.vocab, (ln,), generator=g, device=dev)
+               for ln in GEN_PROMPTS]
+    torch.cuda.synchronize()
+    KF.launches = 0
+    gen_ms = []
+    for p in prompts:
+        t0 = time.perf_counter()
+        toks, reason = engine.generate(params, cfg, p.cpu().numpy(), GEN_NEW,
+                                       prefill_chunk=GEN_CHUNK)
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+        check(toks.shape == (GEN_NEW,) and reason == "length"
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"generate returned {toks} ({reason})")
+    gen_launches = KF.launches
+    log(f"[attn] generate prompts {GEN_PROMPTS}, prefill_chunk {GEN_CHUNK}, "
+        f"{GEN_NEW} new tokens: {[round(x, 3) for x in gen_ms]} ms per "
+        f"request; {gen_launches} flash_attention launches (chunks and "
+        f"decode steps attend over the cache with blockwise_attention)")
+    check(gen_launches == 0, f"flash_attention launched {gen_launches} "
+          "times in generate, expected 0")
+    out.update({"generate_prompts": list(GEN_PROMPTS),
+                "generate_chunk": GEN_CHUNK, "generate_new": GEN_NEW,
+                "generate_ms": gen_ms,
+                "launches": {"serve": serve_launches,
+                             "generate": gen_launches}})
+
+    prefill = engine.make_prefill_step(cfg, LM_PROMPT + LM_GEN)
+    decode = engine.make_decode_step(cfg)
+    batch = {"tokens": res["prompts"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    wall, spans = profiled(lambda: prefill(params, batch))
+    flash = [e - s for s, e, name in spans if "flash_attention_kernel" in name]
+    tok = res["generated"][:, -1]
+
+    def decode_loop():
+        nonlocal caches, tok
+        for i in range(DECODE_PROFILE_STEPS):
+            tok, _, caches = decode(params, caches, {"tokens": tok[:, None]},
+                                    LM_PROMPT + i)
+    dwall, dspans = profiled(decode_loop)
+    out.update({
+        "prefill_ms": warm_ms,
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / (warm_ms / 1e3),
+        "prefill_busy_share": busy_us(spans) / wall if spans else None,
+        "flash_device_us": statistics.mean(flash) if flash else None,
+        "flash_device_us_per_prefill": sum(flash) if flash else None,
+        "decode_busy_share": busy_us(dspans) / dwall if dspans else None,
+        "decode_profiled_ms_per_step": dwall / 1e3 / DECODE_PROFILE_STEPS})
+    log(f"[attn] bf16 prefill {LM_BATCH}x{LM_PROMPT}: first call "
+        f"{res['prefill_ms']:.1f} ms, warm {warm_ms:.1f} ms "
+        f"({out['prefill_tok_s']:.0f} tok/s); under the profiler "
+        f"{wall / 1e3:.1f} ms, card busy {out['prefill_busy_share']}, "
+        f"{len(flash)} flash_attention launches of {out['flash_device_us']} "
+        f"us device time")
+    log(f"[attn] bf16 decode batch {LM_BATCH}: "
+        f"{out['decode_ms_per_step']:.3f} ms per step "
+        f"({out['decode_tok_s']:.1f} tok/s) in launch.serve; "
+        f"{DECODE_PROFILE_STEPS} steps under the profiler "
+        f"{out['decode_profiled_ms_per_step']:.3f} ms per step, card busy "
+        f"{out['decode_busy_share']}")
+    del params, caches, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_attention_entry(dev, errs, attn) -> dict:
+    """Times of flash_attention at gemma-2b's prefill shape, in bf16 (the
+    serving path's type) and fp32, beside its bound, its plain version and
+    scaled_dot_product_attention (timed here only, never called by the
+    port)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as KF
+
+    shape = FLASH_SHAPES[-1]
+    b, h, kvh, s, _, hd, win = shape
+    g = torch.Generator(device=dev).manual_seed(11)
+    pairs = b * h * s * (s + 1) // 2           # causal (q, kv) pairs
+    flops = 4 * hd * pairs                     # q.k and p.v, 2 per multiply-add
+    out = {}
+    for name, ops_s in (("bfloat16", BF16_OPS_PER_S),
+                        ("float32", FP32_OPS_PER_S)):
+        dt = getattr(torch, name)
+        q, k, v = attn_inputs(shape, dt, g, dev)
+        ms = time_cuda(lambda: KF.flash_attention(q, k, v, win), reps=20)
+        plain = time_cuda(lambda: KF.flash_attention_plain(q, k, v, win),
+                          reps=2, rounds=3)
+        lib = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=20)
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound(n_bytes, flops, ops_s)
+        out[name] = (ms, plain, lib, b_ms, b_by)
+        log(f"[time] flash_attention {shape} {name}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.3f} ms, "
+            f"scaled_dot_product_attention {lib:.4f} ms, bound {b_ms:.6f} "
+            f"ms ({b_by}: {n_bytes} bytes, {flops} FLOP)")
+        del q, k, v
+    ms, plain, lib, b_ms, b_by = out["bfloat16"]
+    f32 = out["float32"]
+    launches = attn["launches"]["serve"] + attn["launches"]["generate"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:83",
+            "launches": launches, "max_abs_err": errs["flash_attention"],
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib,
+            "library": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True)",
+            "shape": list(shape), "dtype": "bfloat16",
+            "ms_fp32": f32[0], "plain_ms_fp32": f32[1],
+            "library_ms_fp32": f32[2], "bound_ms_fp32": f32[3],
+            "bound_by_fp32": f32[4],
+            "device_us": attn["flash_device_us"],
+            "launches_fp32_prefill":
+                attn["fp32_kernel_vs_blockwise"]["launches"]["kernel"],
+            "shapes": errs["flash_shapes"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1201,6 +1592,14 @@ def main(argv=None) -> int:
     line["kernels"].append(ssm_scan_entry(dev, errs, lm))
     line["lm"] = lm
     log(f"[lm] phase took {time.perf_counter() - t_lm:.1f} s")
+
+    t_attn = time.perf_counter()
+    attn_on_off = attn_kernel_vs_plain(dev, args.seed)
+    attn = attn_serving(dev, args.seed)
+    attn["fp32_kernel_vs_blockwise"] = attn_on_off
+    line["kernels"].append(flash_attention_entry(dev, errs, attn))
+    line["attn_lm"] = attn
+    log(f"[attn] phase took {time.perf_counter() - t_attn:.1f} s")
     log(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))

@@ -8,7 +8,9 @@ both packages can probe the very same state.
 A model's state is its weights. ``params_from_numpy`` turns the reference's
 ``init_model`` tree (as numpy arrays, block leaves stacked over periods)
 into the port's ``Model``; ``reference_layout`` and ``params_to_numpy`` go
-the other way, so either package's weights can drive the other.
+the other way, so either package's weights can drive the other. Every leaf
+is carried by name, the attention ones too (``wq``, ``wk``, ``wv``, ``wo``,
+the optional ``bq``, ``bk``, ``bv`` and ``q_norm``, ``k_norm``).
 """
 
 from __future__ import annotations

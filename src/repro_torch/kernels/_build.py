@@ -20,7 +20,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("chain_scan", "dtw_wavefront", "radix_rank", "ssm_scan")
+SOURCES = ("chain_scan", "dtw_wavefront", "radix_rank", "ssm_scan",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

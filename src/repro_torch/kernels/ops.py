@@ -4,8 +4,9 @@ They plug the kernels into the core engines: ``chain_scan`` /
 ``chain_anchors`` into the chain stage, ``dp_tile`` (the wavefront tile-fn)
 into ``core.wavefront`` through ``make_sw_tile_fn`` and ``dtw_tile_fn``
 (``sw_tiled``, ``dtw_tiled``), ``radix_rank`` into the chunk-parallel
-LSD passes of ``radix_sort_chunks``, and ``ssm_scan`` (the WKV scan) behind
-the reference's T-padding wrapper.
+LSD passes of ``radix_sort_chunks``, ``ssm_scan`` (the WKV scan) behind
+the reference's T-padding wrapper, and ``flash_attention`` in the model's
+(B, S, heads, hd) layout.
 The kernel emits its tile row-major, so no diagonal-major relayout follows,
 and the chain band is not padded to 128 lanes: that was a TPU register
 artefact, and the kernel takes any T <= 128.
@@ -22,6 +23,8 @@ from repro_torch.core import chain as cchain
 from repro_torch.core import dtw as cdtw
 from repro_torch.kernels.chain_scan import chain_scan  # noqa: F401
 from repro_torch.kernels.dtw_wavefront import dp_tile
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _flash_attention
 from repro_torch.kernels.radix_rank import buckets, radix_rank
 from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_scan
 
@@ -41,6 +44,15 @@ def ssm_scan(r, w, k, v, u=None, chunk: int = 64):
         v = torch.cat([v, v.new_zeros((b, pad, v.shape[-1]))], dim=1)
     y, _ = _ssm_scan(r, w, k, v, u)
     return y[:, :t]
+
+
+def flash_attention(q, k, v, window: int = 0):
+    """Causal attention of a fresh sequence at positions 0..S-1 in the
+    model's layout: q (B, S, H, hd), k and v (B, S, KV, hd); returns (B, S,
+    H, hd) in q's dtype. The kernel reads the transposed views in place."""
+    out = _flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), window)
+    return out.transpose(1, 2)
 
 
 def chain_anchors(q, r, T: int = 64, params=None, anchor_valid=None):

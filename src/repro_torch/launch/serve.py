@@ -1,15 +1,26 @@
 """Serving launcher: batched prefill + decode (port of
 ``repro.launch.serve``).
 
-A batch of random prompts is prefilled once (on the card, the WKV scan of
-every layer is one ``ssm_scan`` kernel launch), then decoded token by
-token: the decode loop is the 1-D dependency-bound recurrence of serving.
-RWKV decodes with O(1) state. Weights are random, drawn from ``--seed``.
+A batch of random prompts is prefilled once (on the card, every attention
+layer is one ``flash_attention`` launch and every RWKV layer one
+``ssm_scan`` launch), then decoded token by token: the decode loop is the
+1-D dependency-bound recurrence of serving. Attention archs decode over
+bf16 ring-buffer KV caches, RWKV with O(1) state. Weights are random,
+drawn from ``--seed``.
+
+``--temperature`` differs from the reference on purpose. The reference's
+decode loop passes no key to its decode step, so its ``sample_token``
+falls back to greedy and the flag changes nothing there. The port samples
+every decoded token (not the prefill's, which is greedy in both) with
+Gumbel noise from a ``torch.Generator`` seeded with ``--seed`` + 2, so the
+same seed gives the same stream; at ``--temperature 0`` the stream is the
+reference's greedy one.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
-      --batch 4 --prompt-len 32 --gen 16
-  PYTHONPATH=src python -m repro_torch.launch.serve --full    # on the card
+      --arch gemma-2b --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --full
+      # on the card
 """
 
 from __future__ import annotations

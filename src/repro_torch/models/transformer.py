@@ -1,20 +1,26 @@
 """The decoder (port of ``repro.models.transformer``), for the families this
-port runs so far: the ``rwkv`` mixer with the ``rwkv_ffn`` or ``dense`` MLP
-(RWKV6). Attention, Mamba and MoE layers raise ``NotImplementedError``.
+port runs so far: the ``attn`` mixer (``models.attention``) and the
+``rwkv`` mixer, with the ``dense`` or ``rwkv_ffn`` MLP (gemma, deepseek,
+qwen2.5, gemma3, RWKV6). Mamba and MoE layers raise
+``NotImplementedError``.
 
 Parameters are a ``Model``: one ``nn.Module`` per layer, each a
-``ParamTree`` holding the reference's leaf names (``norm1``, ``rwkv``,
-``rwkv_ffn``, ...). The layers run one after another in a Python loop; the
-reference's ``lax.scan`` over periods has no counterpart here. Caches keep
-the reference's layout: a dict keyed by pattern position (``p0``...), each
-leaf stacked over periods with the batch on axis 1, so they compare leaf
-for leaf with the JAX package's.
+``ParamTree`` holding the reference's leaf names (``norm1``, ``attn``,
+``rwkv``, ``mlp``, ...). The layers run one after another in a Python loop;
+the reference's ``lax.scan`` over periods has no counterpart here. Caches
+keep the reference's layout: a dict keyed by pattern position (``p0``...),
+each leaf stacked over periods (attention layers hold ``KVCache`` ring
+buffers), so they compare leaf for leaf with the JAX package's.
 
 Modes:
   * train    - full-sequence forward, returns (logits, aux_loss, None).
   * prefill  - full-sequence forward, returns (last-token logits, caches).
   * decode   - one token (S = 1), or a chunk of S > 1 consecutive tokens
                (chunked prefill) that carries the cached state.
+
+On the card, train and prefill run the kernels: ``flash_attention`` for
+every attention layer and ``ssm_scan`` for every RWKV layer. A decode step
+and a chunk attend over the cache with the plain ``blockwise_attention``.
 """
 
 from __future__ import annotations
@@ -27,20 +33,20 @@ from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 
 Tensor = torch.Tensor
 
-#: the slice of the port (ROADMAP queue 1 item 8) that brings each part
-_WAITS = {"attn": "the attention slice, with flash_attention",
-          "mamba": "the Mamba slice", "moe": "the MoE slice"}
+#: the slice of the port (ROADMAP queue 1) that brings each part
+_WAITS = {"mamba": "the Mamba slice", "moe": "the MoE slice"}
 
 
 def _not_ported(what: str, name: str):
     raise NotImplementedError(
         f"{what} {name!r} is not ported yet: it comes with {_WAITS[name]} "
-        "(ROADMAP queue 1 item 8)")
+        "(ROADMAP queue 1)")
 
 
 class ParamTree(nn.Module):
@@ -86,6 +92,14 @@ class Model(nn.Module):
 # sub-config adapters
 # ---------------------------------------------------------------------------
 
+def _attn_cfg(cfg: ModelConfig, spec: LayerSpec) -> attention.AttnConfig:
+    return attention.AttnConfig(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, rope_theta=spec.rope_theta,
+        window=spec.window, kv_block=cfg.kv_block)
+
+
 def _rwkv_cfg(cfg: ModelConfig) -> ssm.RWKVConfig:
     return ssm.RWKVConfig(d_model=cfg.d_model, head_dim=cfg.rwkv_head_dim,
                           scan_chunk=cfg.scan_chunk)
@@ -99,7 +113,9 @@ def _init_layer(g, cfg: ModelConfig, spec: LayerSpec, device):
     d = cfg.d_model
     p: Dict[str, Any] = {"norm1": L.init_rmsnorm(d, device),
                          "norm2": L.init_rmsnorm(d, device)}
-    if spec.mixer == "rwkv":
+    if spec.mixer == "attn":
+        p["attn"] = attention.init_attention(g, _attn_cfg(cfg, spec), device)
+    elif spec.mixer == "rwkv":
         p["rwkv"] = ssm.init_rwkv_time_mix(g, _rwkv_cfg(cfg), device)
     elif spec.mixer in _WAITS:
         _not_ported("mixer", spec.mixer)
@@ -146,11 +162,29 @@ def param_count(params: Model) -> int:
 # one layer
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x: Tensor, cache,
-                 mode: str, use_kernels: bool):
+def _apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
+                 positions: Optional[Tensor], cache, mode: str, pos_scalar,
+                 cache_slots: int, use_kernels: bool, own_positions: bool):
     new_cache: Optional[Dict[str, Any]] = None
     h = L.rmsnorm(p["norm1"], x)
-    if spec.mixer == "rwkv":
+    if spec.mixer == "attn":
+        acfg = _attn_cfg(cfg, spec)
+        if mode == "decode":
+            y, kvc = attention.attention(p["attn"], acfg, h, positions,
+                                         cache=cache["attn"],
+                                         position_scalar=pos_scalar)
+            new_cache = {"attn": kvc}
+        else:
+            slots = None
+            if mode == "prefill":
+                slots = (min(cache_slots, spec.window) if spec.window
+                         else cache_slots)
+            y, kvc = attention.attention(
+                p["attn"], acfg, h, positions, make_cache_slots=slots,
+                use_kernels=use_kernels and own_positions)
+            if kvc is not None:
+                new_cache = {"attn": kvc}
+    elif spec.mixer == "rwkv":
         rcfg = _rwkv_cfg(cfg)
         if mode == "decode":
             if h.shape[1] == 1:
@@ -191,12 +225,19 @@ def _take(tree, j: int):
     """Period j of a cache entry whose leaves are stacked over periods."""
     if isinstance(tree, dict):
         return {k: _take(v, j) for k, v in tree.items()}
+    if isinstance(tree, attention.KVCache):
+        return attention.KVCache(*(x[j] for x in tree))
     return tree[j]
 
 
 def _stack(trees: List[Any]):
+    if trees[0] is None:        # a prefill without cache slots
+        return None
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], attention.KVCache):
+        return attention.KVCache(*(torch.stack(x, dim=0)
+                                   for x in zip(*trees)))
     return torch.stack(trees, dim=0)
 
 
@@ -213,13 +254,16 @@ def apply_model(params: Model, cfg: ModelConfig, *,
                 use_kernels: bool = True):
     """Returns (logits, aux_loss, new_caches_or_None).
 
-    ``positions``, ``pos_scalar`` and ``cache_slots`` are the reference's
-    arguments for attention layers; no mixer of this port reads them yet.
-    ``use_kernels=False`` runs the WKV scan's plain version on the
-    tensors' device instead of the kernel.
+    ``positions`` (B, S) default to 0..S-1 in train and prefill and to
+    ``pos_scalar`` + 0..S-1 in decode, where ``pos_scalar`` is the shared
+    scalar position or the (B,) per-row positions. ``cache_slots`` sizes
+    the caches a prefill builds (0: none). ``use_kernels=False`` runs the
+    plain versions on the tensors' device instead of the kernels: the WKV
+    scan's, and ``blockwise_attention`` (or ``banded_attention``) instead
+    of ``flash_attention``, which runs only where the positions are the
+    model's own 0..S-1.
     """
     assert mode in ("train", "prefill", "decode"), mode
-    del positions, pos_scalar, cache_slots
     dt = cfg.dtype
     if embeds is not None:
         x = embeds.to(dt)
@@ -229,6 +273,18 @@ def apply_model(params: Model, cfg: ModelConfig, *,
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
                                  device=x.device)
 
+    b, s = x.shape[0], x.shape[1]
+    own_positions = positions is None and mode != "decode"
+    if positions is None and (mode != "decode" or pos_scalar is not None):
+        steps = torch.arange(s, dtype=torch.int64, device=x.device)
+        if mode == "decode":
+            pos_scalar = torch.as_tensor(pos_scalar, dtype=torch.int64,
+                                         device=x.device)
+            p0 = pos_scalar.expand(b) if pos_scalar.dim() == 0 else pos_scalar
+            positions = p0[:, None] + steps[None]
+        else:
+            positions = steps[None].expand(b, s)
+
     pattern = cfg.pattern
     period = len(pattern)
     want_caches = mode != "train"
@@ -237,8 +293,9 @@ def apply_model(params: Model, cfg: ModelConfig, *,
     for li, p in enumerate(params.layers):
         i, j = li % period, li // period
         ci = _take(caches[f"p{i}"], j) if caches is not None else None
-        x, nc, aux = _apply_layer(p, cfg, pattern[i], x, ci, mode,
-                                  use_kernels)
+        x, nc, aux = _apply_layer(p, cfg, pattern[i], x, positions, ci,
+                                  mode, pos_scalar, cache_slots, use_kernels,
+                                  own_positions)
         if want_caches:
             new[f"p{i}"].append(nc)
         aux_loss = aux_loss + aux
@@ -264,15 +321,25 @@ def apply_model(params: Model, cfg: ModelConfig, *,
 def init_caches(cfg: ModelConfig, batch: int, slots: int,
                 per_slot_pos: bool = False, device: DeviceLike = None):
     """Zero caches for decode: dict p<i> -> stacked-over-periods leaves,
-    every leaf with the batch on axis 1. ``slots`` and ``per_slot_pos``
-    size attention caches in the reference; RWKV state is O(1) per row."""
-    del slots, per_slot_pos
+    every leaf but a shared ``pos`` with the batch on axis 1. Attention
+    layers get bf16 ``KVCache`` rings of ``slots`` slots (``min(slots,
+    window)`` for a sliding window), with per-row positions (periods,
+    batch, slots) when ``per_slot_pos`` else shared ones (periods, slots);
+    RWKV state is O(1) per row."""
     dev = resolve_device(device)
     np_, d = cfg.num_periods, cfg.d_model
     f32 = dict(dtype=torch.float32, device=dev)
     caches = {}
     for i, spec in enumerate(cfg.pattern):
-        if spec.mixer == "rwkv":
+        if spec.mixer == "attn":
+            sl = min(slots, spec.window) if spec.window else slots
+            pos = (np_, batch, sl) if per_slot_pos else (np_, sl)
+            kv = (np_, batch, sl, cfg.num_kv_heads, cfg.head_dim)
+            caches[f"p{i}"] = {"attn": attention.KVCache(
+                k=torch.zeros(kv, dtype=torch.bfloat16, device=dev),
+                v=torch.zeros(kv, dtype=torch.bfloat16, device=dev),
+                pos=torch.full(pos, -1, dtype=torch.int32, device=dev))}
+        elif spec.mixer == "rwkv":
             h, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
             caches[f"p{i}"] = {
                 "rwkv": {"s": torch.zeros((np_, batch, h, hd, hd), **f32),

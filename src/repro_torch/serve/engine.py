@@ -2,9 +2,14 @@
 per-request ``generate`` (port of ``repro.serve.engine``).
 
 Decode is the dependency-bound 1-D recurrence of serving: each step
-consumes the previous step's cache. RWKV layers carry O(1) recurrent state,
-so decode cost is flat in context length. The steps are plain functions
-under ``torch.inference_mode()``; there is no jit. Sampling at
+consumes the previous step's cache. Attention layers carry bf16 KV ring
+buffers; RWKV layers carry O(1) recurrent state, so their decode cost is
+flat in context length. The steps are plain functions under
+``torch.inference_mode()``; there is no jit. On the card a prefill runs
+the kernels (``flash_attention``, ``ssm_scan``); a chunk runs ``ssm_scan``
+from the carried state, and its attention, like a decode step's, is the
+plain ``blockwise_attention`` over the cache, so ``generate`` launches no
+``flash_attention``. Sampling at
 ``temperature > 0`` draws Gumbel noise from a ``torch.Generator`` (the
 reference's Gumbel-max), so only greedy streams equal the reference's.
 The verify, paged and sharded steps come with the scheduler slice.
@@ -184,9 +189,10 @@ def make_chunk_step(cfg: ModelConfig):
     """chunk(params, caches, tokens, pos) -> (logits (B, C, V), caches).
 
     Chunked prefill: tokens (B, C) are C consecutive tokens per row from
-    absolute position pos[b]; RWKV layers run the state-carried scan (the
-    kernel on the card). Every row carries a full chunk; logits cover every
-    chunk position."""
+    absolute position pos[b]; attention appends the chunk to the cache and
+    masks by absolute position, RWKV layers run the state-carried scan
+    (the kernel on the card). Every row carries a full chunk; logits cover
+    every chunk position."""
 
     @torch.inference_mode()
     def chunk(params, caches, tokens: Tensor, pos: Tensor):

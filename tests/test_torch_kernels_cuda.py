@@ -2,7 +2,8 @@
 its plain PyTorch version on the card. Imports no JAX, so it also runs where
 only PyTorch is installed:
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_kernels_cuda.py
 
 Without a card every test here skips with its reason.
 """
@@ -15,6 +16,7 @@ from repro_torch.core import align as TA
 from repro_torch.core import wavefront as TWF
 from repro_torch.kernels import chain_scan as KC
 from repro_torch.kernels import dtw_wavefront as KT
+from repro_torch.kernels import flash_attention as KF
 from repro_torch.kernels import ops
 from repro_torch.kernels import radix_rank as KR
 from repro_torch.kernels import ssm_scan as KS
@@ -293,3 +295,106 @@ def test_rwkv_prefill_is_one_launch_per_layer(cuda):
     assert KS.launches == before + 2 * cfg.num_layers
     TT.apply_model(params, cfg, tokens=toks[:, :1], mode="decode", caches=c)
     assert KS.launches == before + 2 * cfg.num_layers   # decode: plain torch
+
+
+# tolerances of flash_attention against its plain version on the card: in
+# fp32 both sum 2,048-term dot products in fp32 in other orders (errors
+# near 1e-6 on outputs near 1); in bf16 both compute in fp32 from the same
+# bf16 inputs and round the output once, so they differ by at most about
+# one bf16 ulp of |out| <= 4 (2^-8 * 4 = 0.016)
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,sq,skv,hd,win", [
+    (2, 4, 4, 128, 128, 64, 0), (1, 8, 2, 256, 256, 32, 0),
+    (1, 4, 1, 256, 256, 64, 0), (1, 4, 2, 256, 256, 64, 96),
+    (2, 4, 2, 300, 300, 16, 0), (1, 4, 1, 1000, 1000, 256, 0),
+    (2, 8, 2, 1000, 1000, 128, 0), (1, 4, 4, 37, 70, 64, 0),
+    (1, 16, 8, 2048, 2048, 256, 1024), (1, 2, 1, 12, 4, 16, 3)])
+def test_flash_attention_kernel_close(cuda, dtype, b, h, kvh, sq, skv, hd,
+                                      win):
+    g = torch.Generator(device=cuda).manual_seed(sq + hd + win)
+    q = torch.randn((b, h, sq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, kvh, skv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, kvh, skv, hd), generator=g, device=cuda).to(dtype)
+    want = KF.flash_attention_plain(q, k, v, win)
+    before = KF.launches
+    got = KF.flash_attention(q, k, v, win)
+    torch.cuda.synchronize()
+    assert KF.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """The model's (B, S, heads, hd) tensors, seen as (B, heads, S, hd)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, 100, 8, 128), generator=g, device=cuda)
+    k = torch.randn((2, 100, 2, 128), generator=g, device=cuda)
+    v = torch.randn((2, 100, 2, 128), generator=g, device=cuda)
+    got = ops.flash_attention(q, k, v, window=30)
+    assert got.is_contiguous()
+    want = KF.flash_attention_plain(q.transpose(1, 2).contiguous(),
+                                    k.transpose(1, 2).contiguous(),
+                                    v.transpose(1, 2).contiguous(), 30)
+    torch.testing.assert_close(got, want.transpose(1, 2), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    z = torch.zeros
+    with pytest.raises(ValueError, match="hd=48"):
+        KF.flash_attention(z(1, 2, 8, 48, device=cuda),
+                           z(1, 1, 8, 48, device=cuda),
+                           z(1, 1, 8, 48, device=cuda))
+    with pytest.raises(ValueError, match="H % KV"):
+        KF.flash_attention(z(1, 3, 8, 32, device=cuda),
+                           z(1, 2, 8, 32, device=cuda),
+                           z(1, 2, 8, 32, device=cuda))
+    with pytest.raises(TypeError, match="bfloat16"):
+        KF.flash_attention(z(1, 2, 8, 32, device=cuda, dtype=torch.float16),
+                           z(1, 1, 8, 32, device=cuda, dtype=torch.float16),
+                           z(1, 1, 8, 32, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="on cpu"):
+        KF.flash_attention(z(1, 2, 8, 32, device=cuda), z(1, 1, 8, 32),
+                           z(1, 1, 8, 32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        KF.flash_attention(z(1, 2, 32, 8, device=cuda).transpose(2, 3),
+                           z(1, 1, 8, 32, device=cuda),
+                           z(1, 1, 8, 32, device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "gemma3-12b"])
+def test_attention_prefill_is_one_launch_per_layer(cuda, arch):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(configs.reduced_config(arch),
+                              dtype=torch.float32)
+    params = TT.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda)
+    before = KF.launches
+    on, _, c_on = TT.apply_model(params, cfg, tokens=toks[:, :37],
+                                 mode="prefill", cache_slots=48)
+    assert KF.launches == before + cfg.num_layers
+    off, _, c_off = TT.apply_model(params, cfg, tokens=toks[:, :37],
+                                   mode="prefill", cache_slots=48,
+                                   use_kernels=False)
+    assert KF.launches == before + cfg.num_layers
+    torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
+    for key in c_on:
+        a, b = c_on[key]["attn"], c_off[key]["attn"]
+        assert torch.equal(a.pos, b.pos)
+        # bf16 leaves: one rounding of fp32 values that agree to ~1e-6
+        torch.testing.assert_close(a.k.float(), b.k.float(), rtol=1e-2,
+                                   atol=1e-2)
+        torch.testing.assert_close(a.v.float(), b.v.float(), rtol=1e-2,
+                                   atol=1e-2)
+    _, _, c = TT.apply_model(params, cfg, tokens=toks[:, 37:40],
+                             mode="decode", caches=c_on, pos_scalar=37)
+    TT.apply_model(params, cfg, tokens=toks[:, :1], mode="decode", caches=c,
+                   pos_scalar=40)
+    assert KF.launches == before + cfg.num_layers   # decode: plain torch

@@ -57,6 +57,8 @@ def test_read_mapper_imports_with_jax_blocked():
         import repro_torch.obs
         from repro_torch.runtime import KernelService
         import repro_torch.models.transformer
+        import repro_torch.models.attention
+        import repro_torch.kernels.flash_attention
         import repro_torch.serve.engine
         import repro_torch.launch.serve
         print("IMPORT_OK")

@@ -111,14 +111,40 @@ def test_every_config_equals_the_reference(arch):
         TC.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch,what", [("gemma-2b", "attention"),
-                                       ("jamba-v0.1-52b", "Mamba")])
+@pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "Mamba")])
 def test_families_of_later_slices_raise(arch, what):
     cfg = TC.reduced_config(arch)
     with pytest.raises(NotImplementedError, match=what):
         TT.init_model(cfg, device="meta")
     with pytest.raises(NotImplementedError, match=what):
         TT.init_caches(cfg, 1, 8, device="cpu")
+
+
+def test_moe_still_waits_but_its_attention_caches_build():
+    """olmoe's reduced layers are attention + MoE: the MoE MLP is not
+    ported, but its caches are attention caches only."""
+    cfg = TC.reduced_config("olmoe-1b-7b")
+    assert {(s.mixer, s.mlp) for s in cfg.pattern} == {("attn", "moe")}
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TT.init_model(cfg, device="meta")
+    got = TT.init_caches(cfg, 2, 8, device="cpu")
+    want = RT.init_caches(RC.reduced_config("olmoe-1b-7b"), 2, 8)
+    _close_trees(jax.tree_util.tree_map(lambda t: t.float(), got),
+                 jax.tree_util.tree_map(lambda a: a.astype(jnp.float32),
+                                        want), rtol=0, atol=0)
+
+
+def test_gemma_2b_builds():
+    cfg = TC.reduced_config("gemma-2b")
+    model = TT.init_model(cfg, device="meta")
+    assert TT.param_count(model) == RT.param_count(jax.eval_shape(
+        lambda k: RT.init_model(k, RC.reduced_config("gemma-2b")),
+        jax.random.PRNGKey(0)))
+    caches = TT.init_caches(cfg, 1, 8, per_slot_pos=True, device="cpu")
+    kv = caches["p0"]["attn"]
+    assert tuple(kv.k.shape) == (cfg.num_layers, 1, 8, 1, 32)
+    assert kv.k.dtype == torch.bfloat16
+    assert bool((kv.pos == -1).all()) and tuple(kv.pos.shape) == (2, 1, 8)
 
 
 # --------------------------------------------------------------------------
