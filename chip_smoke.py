@@ -3,7 +3,8 @@
 from ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
 version on the card, maps reads at the paper's Table IV lengths over a
 4,641,652-base reference (the length of E. coli K-12 MG1655) through the
-chain and tile kernels, drives one mixed submit through ``KernelService``
+chain kernel and the one-launch SW wavefront (``dp_wavefront``), drives one
+mixed submit through ``KernelService``
 (map, seed, chain, sw, dtw, sort, scan) and holds every result to its
 direct call, sorts the sort traffic through the radix-rank kernel
 (``ops.radix_sort_chunks``), checks kernels-on against kernels-off, and
@@ -86,6 +87,28 @@ def time_cuda(fn, reps: int, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+def sass_hgmma(build) -> dict:
+    """The tensor-core flash-attention kernels in the built library's SASS
+    (cuobjdump, beside nvcc): per instantiation, its HGMMA instructions and
+    the first of them."""
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass",
+                          str(build.lib_path("flash_attention"))],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    out, cur = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            cur = name if "flash_attention_tc_kernel" in name else None
+            if cur:
+                out[cur] = {"hgmma": 0, "first": None}
+        elif cur and "HGMMA" in line:
+            out[cur]["hgmma"] += 1
+            out[cur]["first"] = out[cur]["first"] or " ".join(line.split())
+    return out
+
+
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
@@ -165,10 +188,103 @@ def check_kernels(dev) -> dict:
             log(f"[kernels] dp_tile dtw {tr}x{tc} batch={lead}: "
                 f"allclose(rtol=1e-5, atol=1e-4)={close} max_abs_err={err}")
             check(close, f"dp_tile dtw {tr}x{tc} {lead} differs")
+    errs["dp_wavefront"] = check_dp_wavefront(dev)
     errs["radix_rank"] = check_radix_rank(dev)
     errs["ssm_scan"] = check_ssm_scan(dev)
     errs["flash_attention"], errs["flash_shapes"] = check_flash_attention(dev)
     return errs
+
+
+# (kind, lead, n, m, tile) of the dp_wavefront checks against the plain
+# tile loop: 64 and 128 tiles at batch 1 and 5, tile 8 across 10,000
+# columns, and 5 x 128 strips of 128 columns, more than the CTAs the card
+# holds at once at that tile (checked below), so CTAs walk several strips
+WAVEFRONT_SHAPES = tuple(
+    (kind,) + shape for kind in ("sw", "dtw") for shape in (
+        ((), 192, 256, 64), ((5,), 192, 256, 64),
+        ((), 256, 384, 128), ((5,), 256, 384, 128),
+        ((), 16, 10_000, 8), ((5,), 128, 16_384, 128)))
+MANY_STRIPS = 5 * 16_384 // 128
+WIDE = (128, 131_072, 64)    # more 64-column strips than resident CTAs
+
+
+def wavefront_inputs(kind, lead, n, m, g, dev):
+    """a, b, top0, left0, corner0 on the card: sw characters 0..3 with
+    integer boundaries, dtw random walks with normal boundaries."""
+    import torch
+    if kind == "sw":
+        ab = [torch.randint(0, 4, lead + (x,), generator=g, device=dev,
+                            dtype=torch.int32) for x in (n, m)]
+        bnd = [torch.randint(0, 30, lead + x, generator=g, device=dev)
+               .float() for x in ((m,), (n,), ())]
+    else:
+        ab = [torch.randn(lead + (x,), generator=g, device=dev).cumsum(-1)
+              for x in (n, m)]
+        bnd = [torch.randn(lead + x, generator=g, device=dev)
+               for x in ((m,), (n,), ())]
+    return (*ab, *bnd)
+
+
+def check_dp_wavefront(dev) -> float:
+    """dp_wavefront against its plain version (run_wavefront over
+    dp_tile_plain), bit for bit, at every WAVEFRONT_SHAPES entry; at WIDE
+    (2,048 strips) against the row-scan oracle core.align.sw_ref, exact in
+    fp32 for integer scores (the plain tile loop would take minutes there);
+    ops.dtw_tiled with its 1e18 padding against core.dtw.dtw_tiled."""
+    import torch
+    from repro_torch.core import align as TA
+    from repro_torch.core import dtw as TD
+    from repro_torch.kernels import dtw_wavefront as KT
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    err = 0.0
+    for kind, lead, n, m, tile in WAVEFRONT_SHAPES:
+        ins = wavefront_inputs(kind, lead, n, m, g, dev)
+        want = KT.dp_wavefront_plain(*ins, kind=kind, tile_r=tile,
+                                     tile_c=tile)
+        got = KT.dp_wavefront(*ins, kind=kind, tile_r=tile, tile_c=tile)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        err = max([err] + [float((x - y).abs().max())
+                           for x, y in zip(got, want)])
+        strips = (lead[0] if lead else 1) * (m // tile)
+        log(f"[kernels] dp_wavefront {kind} batch={lead} {n}x{m} tile "
+            f"{tile}: {strips} strips on {KT.last_grid} CTAs, exact={same}")
+        check(same, f"dp_wavefront {kind} {lead} {n}x{m} tile {tile} "
+              "differs from its plain version")
+        check(strips != MANY_STRIPS or KT.last_grid < strips,
+              f"dp_wavefront {kind}: {strips} strips did not outnumber its "
+              f"{KT.last_grid} CTAs")
+    n, m, tile = WIDE
+    a, b, *_ = wavefront_inputs("sw", (), n, m, g, dev)
+    b[1000:1000 + n] = a                         # one planted local match
+    z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    mat, bottom, right, corner = KT.dp_wavefront(
+        a, b, z(m), z(n), z(), kind="sw", tile_r=tile, tile_c=tile)
+    want = TA.sw_ref(a, b)
+    torch.cuda.synchronize()
+    same = (torch.equal(mat, want) and torch.equal(bottom, want[-1])
+            and torch.equal(right, want[:, -1])
+            and float(corner) == float(want[-1, -1]))
+    err = max(err, float((mat - want).abs().max()))
+    log(f"[kernels] dp_wavefront sw {n}x{m} tile {tile}: {m // tile} strips "
+        f"on {KT.last_grid} resident CTAs, equal to sw_ref: {same}, best "
+        f"{float(mat.max())}")
+    check(same and KT.last_grid < m // tile and float(mat.max()) == 2 * n,
+          f"dp_wavefront sw {n}x{m} differs from sw_ref, or its {m // tile} "
+          f"strips did not outnumber its {KT.last_grid} CTAs")
+    for tile in (64, 32):
+        s_, r_ = (torch.randn(x, generator=g, device=dev).cumsum(0)
+                  for x in (100, 130))
+        want, want_d = TD.dtw_tiled(s_, r_, tile, tile)
+        got, d = ops.dtw_tiled(s_, r_, tile, tile)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want) and float(d) == float(want_d)
+        log(f"[kernels] ops.dtw_tiled 100x130 (1e18 padding) tile {tile}: "
+            f"exact={same}")
+        check(same, f"ops.dtw_tiled tile {tile} differs from dtw_tiled")
+    return err
 
 
 def check_radix_rank(dev) -> float:
@@ -274,9 +390,10 @@ FLASH_SHAPES = ((2, 4, 4, 128, 128, 64, 0),       # the reference's sweep: MHA
                 (1, 16, 8, 2048, 2048, 256, 1024),  # gemma3-12b's local layers
                 (4, 8, 1, 2048, 2048, 256, 0))    # gemma-2b's prefill
 # kernel against plain version: in fp32 both sum in fp32 in other orders
-# (errors near 1e-6 on outputs near 1); in bf16 both compute in fp32 from
-# the same bf16 inputs and round the output once, so they differ by about
-# one bf16 ulp of |out| <= 4 (2^-8 * 4 = 0.016) at most
+# (errors near 1e-6 on outputs near 1); in bf16 the tensor-core kernel also
+# rounds p to bf16 for the p.v product (2^-9 relative per term, which
+# averages out over a row) and both round the output once, so they differ
+# by about one bf16 ulp of |out| <= 4 (2^-8 * 4 = 0.016) at most
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
@@ -328,13 +445,12 @@ def table_iv_profiles():
             for p in genomics.PROFILES]
 
 
-def expected_tiles(read_len: int, cells: int, cfg) -> int:
-    """Tiles of one alignment, from the bucketed read and window lengths."""
+def align_shape(read_len: int, cells: int, cfg):
+    """(rows, columns) of one alignment's DP matrix, from the bucketed read
+    and window lengths."""
     from repro_torch.runtime import bucketing
-    win = cells // read_len
-    rows = bucketing.round_up(read_len, cfg.read_bucket)
-    cols = bucketing.round_up(win, cfg.read_bucket)
-    return -(-rows // cfg.sw_tile) * -(-cols // cfg.sw_tile)
+    return (bucketing.round_up(read_len, cfg.read_bucket),
+            bucketing.round_up(cells // read_len, cfg.read_bucket))
 
 
 def map_main_path(reference, reads, dev):
@@ -357,9 +473,9 @@ def map_main_path(reference, reads, dev):
     mapper.map_read(warm)
     torch.cuda.synchronize()
 
-    KC.launches = KT.launches = 0
-    want_chain = want_tiles = 0
-    max_n = 0
+    KC.launches = KT.launches = KT.wavefront_launches = 0
+    want_chain = want_align = 0
+    max_n, max_align = 0, (0, 0)
     results, by_profile = [], {}
     t_all = time.perf_counter()
     for name, read, truth in ((n, r, t) for n, (r, t) in reads[1:]):
@@ -371,7 +487,10 @@ def map_main_path(reference, reads, dev):
             max_n = max(max_n, bucketing.round_up(res.n_anchors,
                                                   cfg.anchor_bucket))
         if res.align_cells:
-            want_tiles += expected_tiles(len(read), res.align_cells, cfg)
+            want_align += 1
+            max_align = max(max_align, align_shape(len(read),
+                                                   res.align_cells, cfg),
+                            key=lambda x: x[0] * x[1])
         results.append((name, res, truth))
         by_profile.setdefault(name, []).append((res, truth))
         log(f"[main] {name:6s} len={len(read):6d} "
@@ -382,20 +501,25 @@ def map_main_path(reference, reads, dev):
             f"chain_ms={ms.get('chain', 0.0):.3f} "
             f"align_ms={ms.get('align', 0.0):.3f}")
     wall = time.perf_counter() - t_all
-    launches = {"chain_scan": KC.launches, "dp_tile": KT.launches}
+    launches = {"chain_scan": KC.launches,
+                "dp_wavefront": KT.wavefront_launches, "dp_tile": KT.launches}
     log(f"[main] {len(results)} reads in {wall:.3f} s; launches {launches}; "
-        f"expected chain={want_chain} tiles={want_tiles}")
+        f"expected chain={want_chain} dp_wavefront={want_align} (one per "
+        f"aligned read) dp_tile=0; longest alignment {max_align}")
     check(KC.launches == want_chain and want_chain > 0,
           f"chain_scan launched {KC.launches} times, expected {want_chain}")
-    check(KT.launches == want_tiles and want_tiles > 0,
-          f"dp_tile launched {KT.launches} times, expected {want_tiles}")
+    check(KT.wavefront_launches == want_align and want_align > 0,
+          f"dp_wavefront launched {KT.wavefront_launches} times, expected "
+          f"{want_align}")
+    check(KT.launches == 0, f"dp_tile launched {KT.launches} times on the "
+          "main path, expected 0")
     for name, pairs in by_profile.items():
         acc = mapping_accuracy([r for r, _ in pairs], [t for _, t in pairs])
         log(f"[main] accuracy {name}: {acc}")
         if name.startswith("PBHF"):
             check(acc == 1.0, f"{name} reads not within 200 bases of truth: "
                   f"{[(r.pos, t) for r, t in pairs]}")
-    return mapper, launches, max_n, results
+    return mapper, launches, max_n, max_align, results
 
 
 # --------------------------------------------------------------------------
@@ -461,17 +585,18 @@ class _Counted:
         if _Counted.depth:
             return self.adapter.run(payloads)
         _Counted.depth += 1
-        c0 = (KC.launches, KT.launches, KR.launches)
+        c0 = (KC.launches, KT.launches, KR.launches, KT.wavefront_launches)
         t0 = time.perf_counter()
         try:
             return self.adapter.run(payloads)
         finally:
             _Counted.depth -= 1
-            c1 = (KC.launches, KT.launches, KR.launches)
+            c1 = (KC.launches, KT.launches, KR.launches,
+                  KT.wavefront_launches)
             self.tally[self.adapter.name] = {
                 "ms": (time.perf_counter() - t0) * 1e3,
                 "chain_scan": c1[0] - c0[0], "dp_tile": c1[1] - c0[1],
-                "radix_rank": c1[2] - c0[2]}
+                "radix_rank": c1[2] - c0[2], "dp_wavefront": c1[3] - c0[3]}
 
 
 def tile_positions(n, m):
@@ -509,11 +634,12 @@ def service_phase(mapper, reads, main_results, dev, seed):
         svc._adapters[name] = _Counted(svc._adapters[name], tally)
 
     torch.cuda.synchronize()
-    KC.launches = KT.launches = KR.launches = 0
+    KC.launches = KT.launches = KR.launches = KT.wavefront_launches = 0
     t0 = time.perf_counter()
     got = svc.submit([Request(k, p) for k, p in reqs])
     wall = time.perf_counter() - t0
-    launches = {"chain_scan": KC.launches, "dp_tile": KT.launches,
+    launches = {"chain_scan": KC.launches,
+                "dp_wavefront": KT.wavefront_launches, "dp_tile": KT.launches,
                 "radix_rank": KR.launches}
     log(f"[service] {len(reqs)} requests in one submit: {wall:.3f} s; "
         f"launches {launches}")
@@ -539,20 +665,21 @@ def service_phase(mapper, reads, main_results, dev, seed):
              for (_, (read, _)), (_, r, _) in zip(reads, main_results)
              if r.align_cells}
     want_chain = len(chain_b) + len(map_chain_b)
-    want_tiles = (sum(tile_positions(*b) for b in sw_b)
-                  + sum(tile_positions(*b) for b in dtw_b)
-                  + sum(-(-a // mcfg.sw_tile) * -(-b // mcfg.sw_tile)
-                        for a, b in map_b))
+    want_wf = {"sw": len(sw_b), "dtw": len(dtw_b), "map": len(map_b)}
     log(f"[service] expected chain_scan={want_chain} (chain buckets "
         f"{sorted(chain_b)}, map anchor buckets {sorted(map_chain_b)}), "
-        f"dp_tile={want_tiles} (sw buckets {sorted(sw_b)}, dtw buckets "
-        f"{sorted(dtw_b)}, {len(map_b)} map align buckets)")
+        f"dp_wavefront={want_wf} (one per bucket: sw {sorted(sw_b)}, dtw "
+        f"{sorted(dtw_b)}, map align {sorted(map_b)}), dp_tile=0")
     check(launches["chain_scan"] == want_chain,
           f"service chain_scan launches {launches['chain_scan']} != "
           f"{want_chain} (one per anchor bucket)")
-    check(launches["dp_tile"] == want_tiles,
-          f"service dp_tile launches {launches['dp_tile']} != {want_tiles} "
-          f"(one per tile position per bucket)")
+    check(launches["dp_wavefront"] == sum(want_wf.values())
+          and all(tally[k]["dp_wavefront"] == v for k, v in want_wf.items()),
+          f"service dp_wavefront launches "
+          f"{ {k: tally[k]['dp_wavefront'] for k in want_wf} } != {want_wf} "
+          f"(one per sw, dtw and map bucket)")
+    check(launches["dp_tile"] == 0,
+          f"service dp_tile launches {launches['dp_tile']} != 0")
     check(len(dtw_b) == 2 and len(by["dtw"]) == 8,
           "dtw traffic should fill two buckets of 4")
 
@@ -620,8 +747,9 @@ def service_phase(mapper, reads, main_results, dev, seed):
         row = {"requests": n_req, "buckets": nb,
                "batch_per_launch": n_req / nb, "host_ms": t["ms"],
                "host_ms_per_request": t["ms"] / n_req,
-               "launches": {k: t[k] for k in ("chain_scan", "dp_tile",
-                                               "radix_rank") if t[k]}}
+               "launches": {k: t[k] for k in ("chain_scan", "dp_wavefront",
+                                               "dp_tile", "radix_rank")
+                            if t[k]}}
         if name in positions:
             row["us_per_tile_position"] = t["ms"] * 1e3 / positions[name]
         per_kernel[name] = row
@@ -791,8 +919,12 @@ def kernels_on_vs_off(mapper, reads, dev):
 # phase 5: timings and the kernels line
 # --------------------------------------------------------------------------
 
-def kernel_line(dev, launches, errs, max_n):
+WAVEFRONT_PLAIN_SHAPE = (512, 512)   # the plain tile loop's timing shape
+
+
+def kernel_line(dev, launches, errs, max_n, max_align):
     import torch
+    from repro_torch.core import align as TA
     from repro_torch.kernels import chain_scan as KC
     from repro_torch.kernels import dtw_wavefront as KT
 
@@ -824,10 +956,62 @@ def kernel_line(dev, launches, errs, max_n):
     batched_ms = time_cuda(lambda: KT.dp_tile(*bins, kind="sw"), reps=20)
     t_bytes = 4 * (tc + tr + 1) + 4 * (tr + tc) + 4 * (tr * tc + tc + tr + 1)
     t_bound, t_by = bound(t_bytes, 7 * tr * tc)
-    log(f"[time] dp_tile sw {tr}x{tc}: per launch {tile_ms:.4f} ms, plain "
-        f"{tile_plain:.3f} ms, bound {t_bound:.7f} ms ({t_by}); "
-        f"{batch} tiles in one launch {batched_ms:.4f} ms = "
-        f"{batched_ms / batch * 1e3:.3f} us per tile")
+    _, spans = profiled(lambda: [KT.dp_tile(*ins, kind="sw")
+                                 for _ in range(50)])
+    tiles = [e - st for st, e, name in spans if "dp_tile_kernel" in name]
+    tile_dev_us = statistics.mean(tiles) if tiles else None
+    log(f"[time] dp_tile sw {tr}x{tc}: per launch {tile_ms:.4f} ms "
+        f"({tile_dev_us} us device time), plain {tile_plain:.3f} ms, bound "
+        f"{t_bound:.7f} ms ({t_by}); {batch} tiles in one launch "
+        f"{batched_ms:.4f} ms = {batched_ms / batch * 1e3:.3f} us per tile")
+
+    # dp_wavefront at the longest alignment of the main path, held there
+    # cell by cell to the row-scan oracle core.align.sw_ref (exact in fp32
+    # for integer scores); its plain version (the tile loop, ~30 ms per
+    # tile) is timed only at a small shape. b is a copy of a with one base
+    # in ten changed, so high scores run along the whole diagonal and pass
+    # through every strip's hand-off.
+    n, m = max_align
+    a = torch.randint(0, 4, (n,), generator=g, device=dev, dtype=torch.int32)
+    b = torch.randint(0, 4, (m,), generator=g, device=dev, dtype=torch.int32)
+    k = min(n, m)
+    keep = torch.rand(k, generator=g, device=dev) >= 0.1
+    b[:k] = torch.where(keep, a[:k], b[:k])
+    z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    wf = lambda a_, b_: KT.dp_wavefront(  # noqa: E731
+        a_, b_, z(b_.shape[0]), z(a_.shape[0]), z(), kind="sw", tile_r=tr,
+        tile_c=tc)
+    wf_ms = time_cuda(lambda: wf(a, b), reps=3, rounds=3)
+    grid = KT.last_grid
+    mat, bottom, right, corner = wf(a, b)
+    want = TA.sw_ref(a, b)
+    torch.cuda.synchronize()
+    same = (torch.equal(mat, want) and torch.equal(bottom, want[-1])
+            and torch.equal(right, want[:, -1])
+            and float(corner) == float(want[-1, -1]))
+    main_err = float((mat - want).abs().max())
+    best = float(mat.max())
+    del mat, want
+    log(f"[kernels] dp_wavefront sw {n}x{m} tile {tr} (the timed call): "
+        f"equal to sw_ref: {same}, max abs err {main_err}, best {best}")
+    check(same and best > k, f"dp_wavefront sw {n}x{m} differs from sw_ref "
+          f"(max abs err {main_err}) or missed the diagonal (best {best})")
+    pn, pm = WAVEFRONT_PLAIN_SHAPE
+    pa, pb = a[:pn].contiguous(), b[:pm].contiguous()
+    wf_small_ms = time_cuda(lambda: wf(pa, pb), reps=10, rounds=3)
+    wf_plain = time_cuda(lambda: KT.dp_wavefront_plain(
+        pa, pb, z(pm), z(pn), z(), kind="sw", tile_r=tr, tile_c=tc),
+        reps=1, rounds=3)
+    # a, b, top0, left0, corner0 read once; the matrix, bottom row, right
+    # column and corner written once; 7 fp32 operations per cell
+    w_bytes = 4 * (2 * (n + m) + 1) + 4 * (n * m + m + n + 1)
+    w_bound, w_by = bound(w_bytes, 7 * n * m)
+    steps = n // tr + m // tc - 1
+    log(f"[time] dp_wavefront sw {n}x{m} tile {tr}: kernel {wf_ms:.4f} ms "
+        f"({grid} CTAs, {steps} tile steps: {wf_ms / steps * 1e3:.2f} us "
+        f"each; {n * m * 4 / wf_ms / 1e9:.3f} TB/s of matrix), bound "
+        f"{w_bound:.6f} ms ({w_by}); at {pn}x{pm}: kernel "
+        f"{wf_small_ms:.4f} ms, plain {wf_plain:.3f} ms")
 
     return {"kernels": [
         {"name": "chain_scan", "route": "cuda",
@@ -844,7 +1028,17 @@ def kernel_line(dev, launches, errs, max_n):
          "max_abs_err": errs["dp_tile"], "ms": tile_ms,
          "plain_ms": tile_plain, "bound_ms": t_bound, "bound_by": t_by,
          "library_ms": None, "shape": [tr, tc],
-         "batched_us_per_tile": batched_ms / batch * 1e3},
+         "batched_us_per_tile": batched_ms / batch * 1e3,
+         "tile_device_us": tile_dev_us},
+        {"name": "dp_wavefront", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dtw_wavefront.cu",
+         "replaces": "src/repro/kernels/dtw_wavefront.py:102",
+         "launches": launches["dp_wavefront"],
+         "max_abs_err": max(errs["dp_wavefront"], main_err), "ms": wf_ms,
+         "plain_ms": wf_plain, "plain_shape": list(WAVEFRONT_PLAIN_SHAPE),
+         "ms_at_plain_shape": wf_small_ms, "bound_ms": w_bound,
+         "bound_by": w_by, "library_ms": None, "shape": [n, m],
+         "tile": tr, "ctas": grid, "tile_steps": steps},
     ]}
 
 
@@ -869,9 +1063,9 @@ def busy_us(spans) -> float:
 
 def device_trace(mapper, read):
     """One read through the kernels under torch.profiler (CUDA activity
-    only): the card's busy share of the wall time, and the mean device
-    time of one dp_tile launch. Returns None values when the trace holds
-    no device events."""
+    only): the card's busy share of the wall time, the align stage's host
+    ms, and the device ms of its dp_wavefront launches (and of any dp_tile
+    launch). Returns None values when the trace holds no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -884,15 +1078,24 @@ def device_trace(mapper, read):
     spans = device_spans(prof)
     if not spans:
         log("[trace] no device events in the profiler trace: not measured")
-        return {"busy_share": None, "tile_device_us": None}
+        return {"read_len": len(read), "busy_share": None,
+                "align_device_ms": None}
     busy = busy_us(spans)
+    wfs = [e - s for s, e, name in spans if "dp_wavefront_kernel" in name]
     tiles = [e - s for s, e, name in spans if "dp_tile_kernel" in name]
-    out = {"busy_share": busy / wall_us,
-           "tile_device_us": statistics.mean(tiles) if tiles else None}
+    out = {"read_len": len(read), "wall_ms": wall_us / 1e3,
+           "busy_share": busy / wall_us,
+           "align_host_ms": mapper.stage_ms.get("align"),
+           "dp_wavefront_spans": len(wfs), "dp_tile_spans": len(tiles),
+           "align_device_ms": sum(wfs) / 1e3 if wfs else None}
     log(f"[trace] {len(read)}-base read: wall {wall_us / 1e3:.3f} ms under "
         f"the profiler, device busy {busy / 1e3:.3f} ms "
-        f"(share {out['busy_share']:.4f}), {len(spans)} device events, "
-        f"{len(tiles)} dp_tile launches of {out['tile_device_us']} us mean")
+        f"(share {out['busy_share']:.4f}), {len(spans)} device events; "
+        f"align {out['align_host_ms']:.3f} ms host, {len(wfs)} dp_wavefront "
+        f"launches of {out['align_device_ms']} ms device time, "
+        f"{len(tiles)} dp_tile launches")
+    check(len(wfs) == 1 and not tiles, "the traced read's align stage did "
+          "not run as one dp_wavefront launch")
     return out
 
 
@@ -1430,11 +1633,31 @@ def attn_serving(dev, seed) -> dict:
     batch = {"tokens": res["prompts"]}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, caches = prefill(params, batch)
+    lg_on, caches = prefill(params, batch)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     wall, spans = profiled(lambda: prefill(params, batch))
-    flash = [e - s for s, e, name in spans if "flash_attention_kernel" in name]
+    flash = [e - s for s, e, name in spans
+             if "flash_attention_tc_kernel" in name]
+
+    # the same bf16 prefill with the plain blockwise_attention: reported,
+    # not gated (in bf16 the two round p and the attention output at other
+    # places, and 18 layers carry that on)
+    lg_off, _ = engine.make_prefill_step(
+        cfg, LM_PROMPT + LM_GEN, use_kernels=False)(params, batch)
+    last_on, last_off = lg_on[:, -1].float(), lg_off[:, -1].float()
+    scale = float(last_off.abs().max())
+    err = float((last_on - last_off).abs().max())
+    same_first = torch.equal(torch.argmax(last_on, -1),
+                             torch.argmax(last_off, -1))
+    out["bf16_kernel_vs_blockwise"] = {
+        "last_logits_max_abs_err": err, "max_abs_logit": scale,
+        "rel_err": err / scale, "first_tokens_equal": same_first}
+    log(f"[attn] bf16 prefill, flash_attention against blockwise_attention "
+        f"(not gated): last logits max_abs_err {err} of max |logit| "
+        f"{scale:.4f} ({err / scale:.3e} relative); greedy first tokens "
+        f"equal: {same_first}")
+    del lg_on, lg_off, last_on, last_off
     tok = res["generated"][:, -1]
 
     def decode_loop():
@@ -1494,13 +1717,13 @@ def flash_attention_entry(dev, errs, attn) -> dict:
             q, k, v, is_causal=True, enable_gqa=True), reps=20)
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         b_ms, b_by = bound(n_bytes, flops, ops_s)
-        out[name] = (ms, plain, lib, b_ms, b_by)
+        out[name] = (ms, plain, lib, b_ms, b_by, flops / ms / 1e9)
         log(f"[time] flash_attention {shape} {name}: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.3f} ms, "
             f"scaled_dot_product_attention {lib:.4f} ms, bound {b_ms:.6f} "
             f"ms ({b_by}: {n_bytes} bytes, {flops} FLOP)")
         del q, k, v
-    ms, plain, lib, b_ms, b_by = out["bfloat16"]
+    ms, plain, lib, b_ms, b_by, tflops = out["bfloat16"]
     f32 = out["float32"]
     launches = attn["launches"]["serve"] + attn["launches"]["generate"]
     return {"name": "flash_attention", "route": "cuda",
@@ -1511,8 +1734,9 @@ def flash_attention_entry(dev, errs, attn) -> dict:
             "library_ms": lib,
             "library": "torch.nn.functional.scaled_dot_product_attention("
                        "is_causal=True, enable_gqa=True)",
-            "shape": list(shape), "dtype": "bfloat16",
-            "ms_fp32": f32[0], "plain_ms_fp32": f32[1],
+            "shape": list(shape), "dtype": "bfloat16", "tflops": tflops,
+            "kernel": "flash_attention_tc_kernel (wgmma, TMA)",
+            "ms_fp32": f32[0], "tflops_fp32": f32[5], "plain_ms_fp32": f32[1],
             "library_ms_fp32": f32[2], "bound_ms_fp32": f32[3],
             "bound_by_fp32": f32[4],
             "device_us": attn["flash_device_us"],
@@ -1552,8 +1776,15 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in _build.PTXAS_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"[build] {name}: {line.strip()}")
+    hgmma = sass_hgmma(_build)
+    for fn, info in hgmma.items():
+        log(f"[build] sass {fn}: {info['hgmma']} HGMMA, first: "
+            f"{info['first']}")
+    check(len(hgmma) == 5 and all(v["hgmma"] for v in hgmma.values()),
+          "the bf16 flash_attention kernels show no HGMMA in their SASS")
 
     errs = check_kernels(dev)
 
@@ -1567,21 +1798,26 @@ def main(argv=None) -> int:
         for pair in genomics.sample_reads(reference, prof, READS_PER_PROFILE,
                                           seed=args.seed + 1 + i):
             reads.append((prof.name, pair))
-    mapper, launches, max_n, results = map_main_path(reference, reads, dev)
+    mapper, launches, max_n, max_align, results = map_main_path(
+        reference, reads, dev)
 
     svc_info = service_phase(mapper, reads[1:], results, dev, args.seed)
     rank_info = rank_path(svc_info.pop("sort"), dev)
 
     kernels_on_vs_off(mapper, reads[1:], dev)
 
-    line = kernel_line(dev, launches, errs, max_n)
+    line = kernel_line(dev, launches, errs, max_n, max_align)
     line["kernels"].append(radix_rank_entry(dev, rank_info, errs))
-    line["kernels"][0]["service_launches"] = svc_info["launches"]["chain_scan"]
-    line["kernels"][1]["service_launches"] = svc_info["launches"]["dp_tile"]
+    by_name = {k["name"]: k for k in line["kernels"]}
+    for name in ("chain_scan", "dp_wavefront", "dp_tile"):
+        by_name[name]["service_launches"] = svc_info["launches"][name]
     line["service"] = svc_info["per_kernel"]
-    trace = device_trace(mapper, reads[1][1][0][:2000])
-    line["kernels"][1]["tile_device_us"] = trace["tile_device_us"]
-    line["align_busy_share"] = trace["busy_share"]
+    longest = max((r for _, (r, _) in reads[1:]), key=len)
+    traces = [device_trace(mapper, reads[1][1][0][:2000]),
+              device_trace(mapper, longest)]
+    by_name["dp_wavefront"]["device_ms_longest_read"] = \
+        traces[1]["align_device_ms"]
+    line["align_trace"] = traces
     del mapper
     torch.cuda.empty_cache()
 

@@ -18,7 +18,8 @@ comparison: ``baseline`` sorts in one chunk, scans the chain sequentially
 and runs SW row by row; ``squire`` sorts in chunks, chains with the blocked
 scan and runs SW as a tiled wavefront. ``use_kernels`` (the counterpart of
 the reference's ``use_pallas``, on by default) routes the chain scan and
-the SW tiles through the hand-written CUDA kernels; on a CPU device those
+the SW wavefront through the hand-written CUDA kernels (``chain_scan``, and
+``dp_wavefront``: one launch per alignment); on a CPU device those
 wrappers run their plain versions.
 """
 
@@ -151,19 +152,18 @@ def _sw_fn(mode: str, tile: int, use_kernels: bool,
     """fn(a, b) -> (H matrix, best score)."""
     if use_kernels:
         from repro_torch.kernels import ops
-        tile_fn = ops.make_sw_tile_fn(params.match, params.mismatch,
-                                      params.gap)
-    elif mode == "squire":
-        tile_fn = functools.partial(align_lib._sw_tile_fn, params)
-    else:
+
+        def run_kernel(a, b):
+            return ops.sw_tiled(a, b, params, tile_r=tile, tile_c=tile)
+        return run_kernel
+    if mode != "squire":
         def run_base(a, b):
             mat = align_lib.sw_ref(a, b, params)
             return mat, torch.amax(mat, dim=(-2, -1))
         return run_base
 
     def run(a, b):
-        return align_lib.sw_tiled(a, b, params, tile_r=tile, tile_c=tile,
-                                  tile_fn=tile_fn)
+        return align_lib.sw_tiled(a, b, params, tile_r=tile, tile_c=tile)
     return run
 
 

@@ -4,8 +4,9 @@
     H[i,j] = max(0, H[i-1,j-1] + s(a_i, b_j),
                     H[i-1,j] - gap, H[i,j-1] - gap)
 
-The alignment score is max_{i,j} H[i,j]. The hand-written CUDA tile is
-``repro_torch.kernels.dtw_wavefront``; ``_sw_tile_fn`` here is its plain
+The alignment score is max_{i,j} H[i,j]. The hand-written CUDA kernels
+are ``repro_torch.kernels.dtw_wavefront`` (one tile, or the whole wavefront
+in one launch); ``_sw_tile_fn`` here is the tile's plain
 diagonal-vectorized form. Needleman-Wunsch is not ported yet.
 """
 
@@ -74,11 +75,14 @@ def _sw_tile_fn(params, top, left, corner, a, b):
 
 
 def sw_tiled(a: Tensor, b: Tensor, params: SWParams = SWParams(),
-             tile_r: int = 8, tile_c: int = 8, tile_fn=None):
+             tile_r: int = 8, tile_c: int = 8, wavefront_fn=None):
     """Tiled wavefront SW; returns (H matrix, best score).
 
     Padding uses sentinel 255, which mismatches every base and sits below
-    and right of every real cell, so the true region is unaffected.
+    and right of every real cell, so the true region is unaffected. The
+    wavefront is ``wavefront_fn(a, b, top0, left0, corner0, tile_r,
+    tile_c)`` with run_wavefront's result (default: ``run_wavefront`` over
+    the plain tile; the kernel path passes the one-launch kernel).
     """
     n, m = a.shape[0], b.shape[0]
     dev = a.device
@@ -86,13 +90,12 @@ def sw_tiled(a: Tensor, b: Tensor, params: SWParams = SWParams(),
     bp = wavefront.pad_to_multiple(b.to(torch.int32), tile_c, 0, 255)
     npad, mpad = ap.shape[0], bp.shape[0]
 
-    fn = tile_fn or functools.partial(_sw_tile_fn, params)
-    mat, _, _, _ = wavefront.run_wavefront(
-        fn, ap, bp,
-        top0=torch.zeros((mpad,), dtype=torch.float32, device=dev),
-        left0=torch.zeros((npad,), dtype=torch.float32, device=dev),
-        corner0=torch.zeros((), dtype=torch.float32, device=dev),
-        tile_r=tile_r, tile_c=tile_c, assemble=True)
+    run = wavefront_fn or functools.partial(
+        wavefront.run_wavefront, functools.partial(_sw_tile_fn, params))
+    mat, _, _, _ = run(
+        ap, bp, torch.zeros((mpad,), dtype=torch.float32, device=dev),
+        torch.zeros((npad,), dtype=torch.float32, device=dev),
+        torch.zeros((), dtype=torch.float32, device=dev), tile_r, tile_c)
     mat = mat[:n, :m]
     return mat, torch.amax(mat)
 

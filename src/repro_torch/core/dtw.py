@@ -7,14 +7,17 @@ Cell recurrence:  M[i,j] = |S[i]-R[j]| + min(M[i-1,j-1], M[i-1,j], M[i,j-1])
   * dtw_diag  — the whole matrix by anti-diagonals.
   * dtw_tiled — the Squire mapping: tiles walked in wavefront order, the
                 boundary vectors the handoffs between them. The hand-written
-                CUDA tile is ``repro_torch.kernels.dtw_wavefront`` (kind
-                ``dtw``); ``_dtw_tile_fn`` is its plain form.
+                CUDA kernels are ``repro_torch.kernels.dtw_wavefront`` (kind
+                ``dtw``: one tile, or the whole wavefront in one launch);
+                ``_dtw_tile_fn`` is the tile's plain form.
 
 Boundary convention: virtual row/col -1 hold BIG except corner (-1,-1) = 0,
 so M[0,0] = |S[0]-R[0]|.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -69,22 +72,25 @@ def _dtw_tile_fn(top, left, corner, a, b):
 
 
 def dtw_tiled(s: Tensor, r: Tensor, tile_r: int = 8, tile_c: int = 8,
-              tile_fn=None, assemble: bool = True):
+              assemble: bool = True, wavefront_fn=None):
     """Tiled wavefront DTW. Inputs are padded to tile multiples with 1e18
     samples, so no path through a padded cell can be cheaper than a true
-    one. Returns (matrix (n, m) or None, distance)."""
+    one. Returns (matrix (n, m) or None, distance). ``wavefront_fn(a, b,
+    top0, left0, corner0, tile_r, tile_c)`` replaces ``run_wavefront`` over
+    the plain tile when given (the one-launch kernel, which always
+    assembles the matrix)."""
     n, m = s.shape[0], r.shape[0]
     dev = s.device
     sp = wavefront.pad_to_multiple(s.to(torch.float32), tile_r, 0, 1e18)
     rp = wavefront.pad_to_multiple(r.to(torch.float32), tile_c, 0, 1e18)
     npad, mpad = sp.shape[0], rp.shape[0]
 
-    mat, bottom, _, _ = wavefront.run_wavefront(
-        tile_fn or _dtw_tile_fn, sp, rp,
-        top0=torch.full((mpad,), BIG, dtype=torch.float32, device=dev),
-        left0=torch.full((npad,), BIG, dtype=torch.float32, device=dev),
-        corner0=torch.zeros((), dtype=torch.float32, device=dev),
-        tile_r=tile_r, tile_c=tile_c, assemble=assemble)
+    run = wavefront_fn or functools.partial(
+        wavefront.run_wavefront, _dtw_tile_fn, assemble=assemble)
+    mat, bottom, _, _ = run(
+        sp, rp, torch.full((mpad,), BIG, dtype=torch.float32, device=dev),
+        torch.full((npad,), BIG, dtype=torch.float32, device=dev),
+        torch.zeros((), dtype=torch.float32, device=dev), tile_r, tile_c)
 
     if assemble:
         mat = mat[:n, :m]

@@ -49,7 +49,8 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels cannot build")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is (or will be) built."""
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return _build_root() / digest[:16] / f"lib{name}.so"
@@ -62,7 +63,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
         todo = [n for n in names if n not in _LIBS]
         procs = {}
         for name in todo:
-            out = _lib_path(name)
+            out = lib_path(name)
             if out.exists():
                 continue
             out.parent.mkdir(parents=True, exist_ok=True)
@@ -83,7 +84,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name in todo:
-            _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+            _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
         return {n: _LIBS[n] for n in names}
 
 

@@ -6,42 +6,68 @@
 //
 //     out[b, h, i] = sum_j p_ij v[b, h / (H / KV), j] / max(sum_j p_ij, 1e-20)
 //     p_ij = exp(s_ij - m_i) where j <= i (and i - j < window when
-//            window > 0), else 0;  s_ij = (q_i * hd^-0.5) . k_j
+//            window > 0), else 0;  s_ij = hd^-0.5 * (q_i . k_j)
 //
-// Positions count from 0 in q and in kv alike, as in the TPU kernel. The
-// inputs are fp32 or bf16 and are upcast to fp32; m, l and the output
-// accumulator are fp32, and the output is written in the input type. Masked
-// scores are -1e30 and their p is 0, so rows with nothing visible give 0.
+// Positions count from 0 in q and in kv alike, as in the TPU kernel. m, l
+// and the output accumulator are fp32 and the output is written in the
+// input type. Masked scores get p = 0, so rows with nothing visible give 0.
 // Unlike the TPU kernel, any Sq and Skv are taken: the ragged edges are
-// masked here, not padded by the caller.
+// masked here, not padded by the caller. Inputs may be strided views (the
+// model's (B, S, H, hd) layout seen as (B, H, S, hd)); the hd axis must be
+// contiguous.
 //
-// What bounds it on this card: operations. At gemma-2b's prefill shape
-// (B=4, H=8, KV=1, S=2048, hd=256) the causal half of the products is about
-// 69 GFLOP against 75 MB of q, k, v and out: about 0.07 ms at the bf16
-// tensor-core peak, about 1 ms at the fp32 peak outside the tensor cores,
-// 0.02 ms of bytes. This first version does its products on the fp32 cores,
-// so the fp32 peak is its roof; tensor cores (mma / wgmma) and TMA are later
-// work.
+// Two kernels, routed by the inputs' type (flash_attention_launch): it is
+// a route by type, not a fallback, and a bf16 call the tensor-core kernel
+// cannot take is refused, never sent to the other one.
 //
-// Design. One CTA owns one (batch, head, 64-row q block) and loops over the
-// 64-row kv tiles from the window's first tile to the causal edge, so the
-// online-softmax carry (m, l, acc) never leaves the CTA; tiles that are
-// wholly masked are skipped, which changes no bit (m is unchanged there, the
-// correction is exp(0) = 1 and p is 0). The q blocks run from the last to
-// the first, so the longest CTAs start first. The q block, one k tile and
-// one v tile sit in shared memory as fp32 (about 210 KB at hd 256); the
-// query head reads its kv head through the index h / (H / KV), so grouped
-// heads share k and v without a broadcast copy. Each of the 8 warps owns 8
-// q rows: for the scores, lane l holds kv columns l and l + 32 of its 8 rows
-// (q read as broadcast float4s, k rows padded by 4 floats so the float4
-// reads meet no bank conflict); the row max and sum are warp shuffles; p
-// goes through shared memory to the p.v product, where lane l owns the
-// output columns l, l + 32, ... of its 8 rows. Inputs may be strided views
-// (the model's (B, S, H, hd) layout seen as (B, H, S, hd)); the last axis
-// must be contiguous.
+// * bf16: flash_attention_tc_kernel, on the tensor cores. What bounds it:
+//   operations. At gemma-2b's prefill shape (B=4, H=8, KV=1, S=2048,
+//   hd=256) the causal half of the two products is about 69 GFLOP against
+//   75 MB of q, k, v and out: about 0.07 ms at the 989 TFLOP/s bf16 peak,
+//   0.02 ms of bytes. Design: a CTA owns 128 q rows of one (batch, head)
+//   as two consumer warpgroups of 64 rows and one producer warpgroup,
+//   which hands its registers to them (setmaxnreg: 24 against 240, so the
+//   64 x 256 fp32 accumulator stays in registers). The producer's one
+//   issuing thread loads the q block once and streams 64-row k and v tiles
+//   through a two-stage ring in shared memory with TMA
+//   (cp.async.bulk.tensor, 4-D maps over (hd, S, heads, B) with the
+//   views' own strides; rows past the end come back as zeros), each
+//   completion on an mbarrier, each stage released by the consumers
+//   through another: the next tile's load overlaps this tile's products.
+//   Tiles land in 32/64/128-byte swizzled panels of at most 64 columns,
+//   the layouts the wgmma descriptors name. Per tile, each warpgroup runs
+//   S = Q K^T as wgmma m64n64k16 with both operands in shared memory
+//   (K-major), scales S by hd^-0.5 in fp32 (not q in bf16: the scale is
+//   not a power of two at hd 128), masks, and updates the online softmax
+//   in registers (exp2 with log2(e) folded into the scale); p is rounded
+//   to bf16 in registers, the one new rounding, and O += P V runs as
+//   wgmma m64n{hd}k16 with P from registers and V read through the
+//   transpose bit (MN-major). Tiles wholly masked for a warpgroup are
+//   skipped (it still takes part in the ring), and q blocks run from the
+//   last to the first, so the longest CTAs start first.
+//
+// * fp32: flash_attention_kernel on the fp32 cores (this file's first
+//   kernel, unchanged). At the shape above its roof is about 1 ms at the
+//   67 TFLOP/s fp32 peak. One CTA owns one (batch, head, 64-row q block)
+//   and loops over the 64-row kv tiles from the window's first tile to the
+//   causal edge, so the online-softmax carry (m, l, acc) never leaves the
+//   CTA; tiles that are wholly masked are skipped, which changes no bit (m
+//   is unchanged there, the correction is exp(0) = 1 and p is 0). The q
+//   blocks run from the last to the first. The q block (pre-scaled by
+//   hd^-0.5), one k tile and one v tile sit in shared memory as fp32
+//   (about 210 KB at hd 256); the query head reads its kv head through the
+//   index h / (H / KV), so grouped heads share k and v without a broadcast
+//   copy. Each of the 8 warps owns 8 q rows: for the scores, lane l holds
+//   kv columns l and l + 32 of its 8 rows (q read as broadcast float4s, k
+//   rows padded by 4 floats so the float4 reads meet no bank conflict); the
+//   row max and sum are warp shuffles; p goes through shared memory to the
+//   p.v product, where lane l owns the output columns l, l + 32, ... of its
+//   8 rows.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -54,13 +80,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int HD>
 struct Layout {
@@ -276,10 +296,559 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBM = 128;             // q rows per CTA: two warpgroups of 64
+constexpr int kTcBN = 64;              // kv rows per tile
+constexpr int kTcStages = 2;           // k / v ring depth
+constexpr int kTcConsumers = 256;      // two consumer warpgroups
+constexpr int kTcThreads = kTcConsumers + 128;  // + the producer warpgroup
+// registers per thread after setmaxnreg: 128 x 24 + 256 x 240 <= 65,536
+constexpr int kTcProducerRegs = 24;
+constexpr int kTcConsumerRegs = 240;
+constexpr unsigned kAllLanes = 0xffffffffu;
+
+template <int HD>
+struct TcCfg {
+  static constexpr int kPW = HD < 64 ? HD : 64;     // panel width, elements
+  static constexpr int kPanels = HD / kPW;
+  static constexpr int kRowBytes = kPW * 2;         // = the swizzle span
+  // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
+  static constexpr uint32_t kLayout =
+      kRowBytes == 128 ? 1u : (kRowBytes == 64 ? 2u : 3u);
+  static constexpr int kQBytes = kTcBM * HD * 2;
+  static constexpr int kKVBytes = kTcBN * HD * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kTcStages * kKVBytes;
+  static constexpr int kBar = kV + kTcStages * kKVBytes;
+  // q_full, k_full[S], v_full[S], empty[S]
+  static constexpr int kBarBytes = 8 * (1 + 3 * kTcStages);
+  static constexpr size_t kSmem = kBar + kBarBytes + 1024;   // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// waits until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// shared-memory matrix descriptor of wgmma: start, leading and stride byte
+// offsets (16-byte units) and the swizzle layout
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma m64nNk16, f32 += bf16 x bf16. _ss: A and B from shared memory,
+// both K-major; _rs: A from registers, B from shared memory MN-major (the
+// transpose bit). d holds N / 2 floats per thread of the warpgroup.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8], const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128], const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 16) {
+    wgmma_rs_m64n16(d, a, db, 1);
+  } else if constexpr (N == 32) {
+    wgmma_rs_m64n32(d, a, db, 1);
+  } else if constexpr (N == 64) {
+    wgmma_rs_m64n64(d, a, db, 1);
+  } else if constexpr (N == 128) {
+    wgmma_rs_m64n128(d, a, db, 1);
+  } else {
+    static_assert(N == 256, "head dim");
+    wgmma_rs_m64n256(d, a, db, 1);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator layout of wgmma m64nN (per warpgroup): warp w, lane l holds
+// for rows 16 w + l / 4 (registers 4 j, 4 j + 1) and 16 w + l / 4 + 8
+// (4 j + 2, 4 j + 3) the columns 8 j + 2 (l % 4) and + 1. The register-A
+// fragment of m64k16 is the same layout over 16 columns, so P goes from
+// the S accumulator to the A operand without leaving the registers.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ o, int H, int KV,
+                          int Sq, int Skv, int window, float scale_log2,
+                          Strides os) {
+  using C = TcCfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sq = smem + C::kQ;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBar);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + kTcStages;
+  uint64_t* empty = v_full + kTcStages;
+
+  const int qb = gridDim.x - 1 - blockIdx.x;   // longest CTAs first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q0 = qb * kTcBM;
+  const int q_last = min(q0 + kTcBM, Sq) - 1;
+  const int kv_end = min(q_last + 1, Skv);                 // causal edge
+  const int kv_first =
+      (window > 0 ? max(0, q0 - window + 1) : 0) / kTcBN * kTcBN;
+  const int n_tiles =
+      kv_end > kv_first ? (kv_end - kv_first + kTcBN - 1) / kTcBN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(k_full + st, 1);
+      mbar_init(v_full + st, 1);
+      mbar_init(empty + st, kTcConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kTcConsumers) {
+    // producer warpgroup: gives up its registers; one thread issues every
+    // copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kTcProducerRegs));
+    if (threadIdx.x == kTcConsumers) {
+      mbar_expect_tx(q_full, C::kQBytes);
+      for (int p = 0; p < C::kPanels; ++p) {
+        tma_load_4d(sq + p * kTcBM * C::kRowBytes, &tq, q_full, p * C::kPW,
+                    q0, h, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kTcStages;
+        if (t >= kTcStages) mbar_wait(empty + st, ((t / kTcStages) & 1) ^ 1);
+        const int kv0 = kv_first + t * kTcBN;
+        uint8_t* sk = smem + C::kK + st * C::kKVBytes;
+        uint8_t* sv = smem + C::kV + st * C::kKVBytes;
+        mbar_expect_tx(k_full + st, C::kKVBytes);
+        for (int p = 0; p < C::kPanels; ++p) {
+          tma_load_4d(sk + p * kTcBN * C::kRowBytes, &tk, k_full + st,
+                      p * C::kPW, kv0, kvh, b);
+        }
+        mbar_expect_tx(v_full + st, C::kKVBytes);
+        for (int p = 0; p < C::kPanels; ++p) {
+          tma_load_4d(sv + p * kTcBN * C::kRowBytes, &tv, v_full + st,
+                      p * C::kPW, kv0, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns q rows wq0 .. wq0 + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kTcConsumerRegs));
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int wq0 = q0 + 64 * wg;
+  const int row_a = 16 * warp + lane / 4;       // and row_a + 8
+  const int col0 = 2 * (lane % 4);
+  const uint32_t q_addr = smem_u32(sq) + wg * 64 * C::kRowBytes;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};      // this thread's part of the row sums
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kTcStages;
+    const uint32_t ph = (t / kTcStages) & 1;
+    const int kv0 = kv_first + t * kTcBN;
+    const bool skip = kv0 > wq0 + 63 ||
+                      (window > 0 && wq0 - (kv0 + kTcBN - 1) >= window);
+    mbar_wait(k_full + st, ph);
+    if (skip) {                     // wholly masked for this warpgroup
+      mbar_wait(v_full + st, ph);
+      mbar_arrive(empty + st);
+      continue;
+    }
+
+    // S = Q K^T (64 x 64), fp32
+    const uint32_t k_addr = smem_u32(smem + C::kK + st * C::kKVBytes);
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int p = kk * 16 / C::kPW;
+      const uint32_t off = (kk * 16 % C::kPW) * 2;
+      const uint64_t da =
+          make_desc(q_addr + p * kTcBM * C::kRowBytes + off, 16,
+                    8 * C::kRowBytes, C::kLayout);
+      const uint64_t db =
+          make_desc(k_addr + p * kTcBN * C::kRowBytes + off, 16,
+                    8 * C::kRowBytes, C::kLayout);
+      wgmma_ss_m64n64(s, da, db, kk > 0 ? 1 : 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale, mask, online softmax (base 2)
+    const bool need_mask =
+        kv0 + kTcBN - 1 > wq0 || kv0 + kTcBN > Skv ||
+        (window > 0 && (wq0 + 63) - kv0 >= window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (need_mask) {
+        const int qp = wq0 + row_a + ((i % 4) >= 2 ? 8 : 0);
+        const int kp = kv0 + 8 * (i / 4) + col0 + (i % 2);
+        const bool ok = kp <= qp && kp < Skv && (window <= 0 || qp - kp < window);
+        x = ok ? x : -INFINITY;
+      }
+      s[i] = x;
+      mx[(i % 4) >> 1] = fmaxf(mx[(i % 4) >> 1], x);
+    }
+    float corr[2], m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kAllLanes, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kAllLanes, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = exp2f(m_run[r] - m_use[r]);
+      m_run[r] = m_new;
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i % 4) >> 1;
+      const float p = exp2f(s[i] - m_use[r]);
+      s[i] = p;
+      ls[r] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + ls[r];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i % 4) >> 1];
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+
+    // O += P V: P (64 x 64) from registers, V (64 x HD) MN-major
+    mbar_wait(v_full + st, ph);
+    const uint32_t v_addr = smem_u32(smem + C::kV + st * C::kKVBytes);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBN / 16; ++kk) {
+      const uint64_t db = make_desc(v_addr + kk * 16 * C::kRowBytes,
+                                    kTcBN * C::kRowBytes, 8 * C::kRowBytes,
+                                    C::kLayout);
+      wgmma_rs<HD>(acc, pa + 4 * kk, db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(empty + st);
+  }
+
+  // out = acc / l, in bf16
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(kAllLanes, l, 1);
+    l += __shfl_xor_sync(kAllLanes, l, 2);
+    inv[r] = 1.f / fmaxf(l, 1e-20f);
+  }
+  o += b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = wq0 + row_a + 8 * r;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* orow = o + (long long)qp * os.s + col0;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv[r],
+                                acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// A 4-D map over the (B, heads, S, hd) view: dims (hd, S, heads, B), the
+// view's strides in bytes, a box of (panel width, rows, 1, 1).
+template <int HD>
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
+                Strides st, int rows) {
+  using C = TcCfg<HD>;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::kPW, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      C::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : C::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int KV, int Sq, int Skv, int window, float scale,
+              Strides qs, Strides ks, Strides vs, Strides os,
+              cudaStream_t stream) {
+  using C = TcCfg<HD>;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<HD>(&tq, q, B, H, Sq, qs, kTcBM) ||
+      !tensor_map<HD>(&tk, k, B, KV, Skv, ks, kTcBN) ||
+      !tensor_map<HD>(&tv, v, B, KV, Skv, vs, kTcBN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kern = flash_attention_tc_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + kTcBM - 1) / kTcBM, H, B);
+  const float log2e = 1.4426950408889634f;
+  kern<<<grid, kTcThreads, C::kSmem, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, H, KV, Sq, Skv, window, scale * log2e,
+      os);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o,
+                int B, int H, int KV, int Sq, int Skv, int window, float scale,
+                Strides qs, Strides ks, Strides vs, Strides os,
+                cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_tc<16>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 32: return launch_tc<32>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 64: return launch_tc<64>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 128: return launch_tc<128>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 256: return launch_tc<256>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Strides are in elements, for the (B, H, S, hd)
-// view of each tensor; the hd axis is contiguous.
+// dtype: 0 = fp32 (the SIMT kernel), 1 = bf16 (the tensor-core kernel).
+// Strides are in elements, for the (B, H, S, hd) view of each tensor; the
+// hd axis is contiguous, and for bf16 every pointer is 16-byte aligned and
+// every stride a multiple of 8 (TMA's rule).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int KV, int Sq, int Skv, int hd, int window, float scale,
@@ -301,8 +870,8 @@ extern "C" int flash_attention_launch(
                               qs, ks, vs, os, s);
   }
   if (dtype == 1) {
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, KV, Sq, Skv,
-                                      window, scale, qs, ks, vs, os, s);
+    return dispatch_tc(hd, q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs,
+                       ks, vs, os, s);
   }
   return (int)cudaErrorInvalidValue;
 }

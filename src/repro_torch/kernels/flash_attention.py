@@ -1,14 +1,15 @@
 """Fused causal attention with GQA/MQA and an optional sliding window: the
-CUDA kernel ``csrc/flash_attention.cu`` (which replaces the TPU kernel
-``repro.kernels.flash_attention.flash_attention_pallas``) and its plain
-PyTorch version.
+CUDA kernels of ``csrc/flash_attention.cu`` (which replace the TPU kernel
+``repro.kernels.flash_attention.flash_attention_pallas``) and their plain
+PyTorch version. bf16 inputs go to the tensor-core kernel (wgmma, TMA), fp32
+inputs to the kernel on the fp32 cores: a route by type, not a fallback.
 
     q (B, H, Sq, hd); k, v (B, KV, Skv, hd), H % KV == 0; query head h reads
     kv head h // (H / KV). Positions count from 0 in q and in kv alike; kv
     position j is visible to q position i when j <= i and, for window > 0,
-    i - j < window. The inputs are upcast to fp32 and q is scaled by
-    hd^-0.5; masked scores get p = 0, the output is acc / max(l, 1e-20) in
-    q's dtype.
+    i - j < window. The scores are hd^-0.5 q.k in fp32; masked scores get
+    p = 0, the output is acc / max(l, 1e-20) in q's dtype. The bf16 kernel
+    rounds p to bf16 for the p.v product (the plain version does not).
 
 Unlike the TPU kernel, neither version needs Sq or Skv to be a multiple of a
 block: the kernel masks its ragged edges itself.
@@ -96,6 +97,25 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window: int):
         raise ValueError(f"flash_attention: window={window} < 0")
     if b > 65535 or h > 65535:
         raise ValueError(f"flash_attention: B={b} or H={h} > 65535")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(st % 8 for st in _tma_strides(x)):
+                raise ValueError(
+                    f"flash_attention: bf16 {name} with strides "
+                    f"{tuple(x.stride())} at a {x.data_ptr() % 16}-byte "
+                    "offset; the tensor-core kernel loads by TMA, which "
+                    "needs a 16-byte aligned start and strides that are "
+                    "multiples of 8 elements")
+
+
+def _tma_strides(x: Tensor):
+    """x's (B, heads, S) strides, a size-1 axis given its contiguous stride
+    (its own stride is never used and may be anything)."""
+    out, inner = [], x.shape[3]
+    for ax in (2, 1, 0):
+        out.append(x.stride(ax) if x.shape[ax] > 1 else inner)
+        inner *= x.shape[ax]
+    return out[::-1]
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor,
@@ -118,7 +138,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
                          _ARGTYPES)
     dev = q.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+    strides = [s for x in (q, k, v, out) for s in _tma_strides(x)]
     launches += 1
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              _DTYPES[q.dtype], b, h, kvh, sq, skv, hd, window, hd ** -0.5,

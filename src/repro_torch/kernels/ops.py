@@ -2,8 +2,10 @@
 
 They plug the kernels into the core engines: ``chain_scan`` /
 ``chain_anchors`` into the chain stage, ``dp_tile`` (the wavefront tile-fn)
-into ``core.wavefront`` through ``make_sw_tile_fn`` and ``dtw_tile_fn``
-(``sw_tiled``, ``dtw_tiled``), ``radix_rank`` into the chunk-parallel
+into ``core.wavefront`` through ``make_sw_tile_fn`` and ``dtw_tile_fn``,
+``dp_wavefront`` (the whole tile wavefront in one launch) through
+``make_sw_wavefront_fn`` and ``dtw_wavefront_fn`` into ``sw_tiled`` and
+``dtw_tiled``, ``radix_rank`` into the chunk-parallel
 LSD passes of ``radix_sort_chunks``, ``ssm_scan`` (the WKV scan) behind
 the reference's T-padding wrapper, and ``flash_attention`` in the model's
 (B, S, heads, hd) layout.
@@ -21,6 +23,7 @@ import torch
 from repro_torch.core import align as calign
 from repro_torch.core import chain as cchain
 from repro_torch.core import dtw as cdtw
+from repro_torch.kernels import dtw_wavefront as _dp
 from repro_torch.kernels.chain_scan import chain_scan  # noqa: F401
 from repro_torch.kernels.dtw_wavefront import dp_tile
 from repro_torch.kernels.flash_attention import \
@@ -74,16 +77,33 @@ def make_sw_tile_fn(match=2.0, mismatch=-4.0, gap=4.0):
                              mismatch=mismatch, gap=gap)
 
 
+def make_sw_wavefront_fn(match=2.0, mismatch=-4.0, gap=4.0):
+    """``run_wavefront``'s signature (tile_fn bound) on ``dp_wavefront``,
+    kind sw: the whole wavefront in one launch."""
+    def run(a, b, top0, left0, corner0, tile_r, tile_c):
+        return _dp.dp_wavefront(a, b, top0, left0, corner0, kind="sw",
+                                tile_r=tile_r, tile_c=tile_c, match=match,
+                                mismatch=mismatch, gap=gap)
+    return run
+
+
+def dtw_wavefront_fn(a, b, top0, left0, corner0, tile_r, tile_c):
+    """The same for kind dtw."""
+    return _dp.dp_wavefront(a, b, top0, left0, corner0, kind="dtw",
+                            tile_r=tile_r, tile_c=tile_c)
+
+
 def sw_tiled(a, b, params=None, tile_r: int = 128, tile_c: int = 128):
-    """End-to-end SW: the wavefront scheduler over the kernel's tiles."""
+    """End-to-end SW: the tile wavefront in one ``dp_wavefront`` launch."""
     p = params or calign.SWParams()
-    fn = make_sw_tile_fn(p.match, p.mismatch, p.gap)
-    return calign.sw_tiled(a, b, p, tile_r, tile_c, tile_fn=fn)
+    fn = make_sw_wavefront_fn(p.match, p.mismatch, p.gap)
+    return calign.sw_tiled(a, b, p, tile_r, tile_c, wavefront_fn=fn)
 
 
 def dtw_tiled(s, r, tile_r: int = 128, tile_c: int = 128, **kw):
-    """End-to-end DTW: the wavefront scheduler over the kernel's tiles."""
-    return cdtw.dtw_tiled(s, r, tile_r, tile_c, tile_fn=dtw_tile_fn, **kw)
+    """End-to-end DTW: the tile wavefront in one ``dp_wavefront`` launch."""
+    return cdtw.dtw_tiled(s, r, tile_r, tile_c,
+                          wavefront_fn=dtw_wavefront_fn, **kw)
 
 
 def radix_sort_chunks(keys, vals=None, key_bits: int = 32):

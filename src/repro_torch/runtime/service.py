@@ -23,9 +23,9 @@ on ``device`` (``None``: the card; it raises without one). With
 reference's ``use_pallas``), the chain stage of ``chain`` (fission and
 sequential modes) and ``map`` launches the ``chain_scan`` kernel once per
 anchor bucket on the stacked scores, and ``sw``, ``dtw`` and ``map``'s
-align stage run the batched wavefront over the ``dp_tile`` kernel: one
-launch per tile position for the whole bucket. On the CPU those wrappers
-run their plain versions.
+align stage run the whole batched wavefront as one ``dp_wavefront`` launch
+per bucket. On the CPU those wrappers run their plain versions; with
+``use_kernels`` off, the wavefront walks the plain tiles.
 
 Every result equals the corresponding direct call into
 ``repro_torch.core`` / ``repro_torch.kernels.ops`` / ``ReadMapper``:
@@ -178,31 +178,31 @@ def _sort_fn(num_chunks: int):
     return run
 
 
-def _sw_tile_fn(params: align_lib.SWParams, use_kernels: bool):
-    """Batched SW tile-fn: the ``dp_tile`` kernel's wrapper, or the plain
-    diagonal tile (both carry leading batch axes)."""
+def _sw_wavefront_fn(params: align_lib.SWParams, use_kernels: bool):
+    """Batched SW wavefront with ``run_wavefront``'s signature: one
+    ``dp_wavefront`` launch, or the loop over the plain diagonal tile (both
+    carry leading batch axes)."""
     if use_kernels:
-        return ops.make_sw_tile_fn(params.match, params.mismatch,
-                                   params.gap)
-    return functools.partial(align_lib._sw_tile_fn, params)
+        return ops.make_sw_wavefront_fn(params.match, params.mismatch,
+                                        params.gap)
+    return functools.partial(wavefront.run_wavefront_batched,
+                             functools.partial(align_lib._sw_tile_fn,
+                                               params))
 
 
-def _sw_batched(a: Tensor, b: Tensor, tile_fn, tile: int) -> Tensor:
+def _sw_batched(a: Tensor, b: Tensor, run, tile: int) -> Tensor:
     """(B, na) x (B, nb) int32 -> H matrices (B, na, nb) over the batched
-    wavefront; each row equals ``align.sw_tiled`` on that row."""
+    wavefront ``run``; each row equals ``align.sw_tiled`` on that row."""
     bsz, na = a.shape
     nb = b.shape[1]
     ap = wavefront.pad_to_multiple(a, tile, 1, 255)
     bp = wavefront.pad_to_multiple(b, tile, 1, 255)
     dev = a.device
-    mat, _, _, _ = wavefront.run_wavefront_batched(
-        tile_fn, ap, bp,
-        top0=torch.zeros((bsz, bp.shape[1]), dtype=torch.float32,
-                         device=dev),
-        left0=torch.zeros((bsz, ap.shape[1]), dtype=torch.float32,
-                          device=dev),
-        corner0=torch.zeros((bsz,), dtype=torch.float32, device=dev),
-        tile_r=tile, tile_c=tile, assemble=True)
+    mat, _, _, _ = run(
+        ap, bp, torch.zeros((bsz, bp.shape[1]), dtype=torch.float32,
+                            device=dev),
+        torch.zeros((bsz, ap.shape[1]), dtype=torch.float32, device=dev),
+        torch.zeros((bsz,), dtype=torch.float32, device=dev), tile, tile)
     return mat[:, :na, :nb]
 
 
@@ -215,15 +215,14 @@ def _dtw_batched(s: Tensor, r: Tensor, tile: int, use_kernels: bool
     dev = s.device
     sp = wavefront.pad_to_multiple(s, tile, 1, 1e18)
     rp = wavefront.pad_to_multiple(r, tile, 1, 1e18)
-    tile_fn = ops.dtw_tile_fn if use_kernels else dtw_lib._dtw_tile_fn
-    mat, _, _, _ = wavefront.run_wavefront_batched(
-        tile_fn, sp, rp,
-        top0=torch.full((bsz, rp.shape[1]), dtw_lib.BIG,
-                        dtype=torch.float32, device=dev),
-        left0=torch.full((bsz, sp.shape[1]), dtw_lib.BIG,
-                         dtype=torch.float32, device=dev),
-        corner0=torch.zeros((bsz,), dtype=torch.float32, device=dev),
-        tile_r=tile, tile_c=tile, assemble=True)
+    run = (ops.dtw_wavefront_fn if use_kernels else functools.partial(
+        wavefront.run_wavefront_batched, dtw_lib._dtw_tile_fn))
+    mat, _, _, _ = run(
+        sp, rp, torch.full((bsz, rp.shape[1]), dtw_lib.BIG,
+                           dtype=torch.float32, device=dev),
+        torch.full((bsz, sp.shape[1]), dtw_lib.BIG, dtype=torch.float32,
+                   device=dev),
+        torch.zeros((bsz,), dtype=torch.float32, device=dev), tile, tile)
     return mat[:, :n, :m]
 
 
@@ -386,7 +385,8 @@ class SWAdapter(KernelAdapter):
     def launch(self, key, leaves):
         a, b, la, lb = leaves
         cfg = self.cfg
-        mats = _sw_batched(a, b, _sw_tile_fn(cfg.sw_params, cfg.use_kernels),
+        mats = _sw_batched(a, b, _sw_wavefront_fn(cfg.sw_params,
+                                                  cfg.use_kernels),
                            cfg.sw_tile)
         return _first_argmax_2d(mats, la, lb)
 
@@ -621,8 +621,8 @@ class MapperAdapter(KernelAdapter):
         oracle (baseline)."""
         cfg = self.cfg.mapper
         if cfg.use_kernels or cfg.mode == "squire":
-            mats = _sw_batched(a, b, _sw_tile_fn(cfg.sw_params,
-                                                 cfg.use_kernels),
+            mats = _sw_batched(a, b, _sw_wavefront_fn(cfg.sw_params,
+                                                      cfg.use_kernels),
                                cfg.sw_tile)
             return torch.amax(mats, dim=(-2, -1))
         fn = rm._sw_fn("baseline", cfg.sw_tile, False, cfg.sw_params)

@@ -8,6 +8,8 @@ only PyTorch is installed:
 Without a card every test here skips with its reason.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -114,13 +116,135 @@ def test_sw_tiled_on_the_card_exact(cuda):
     a = b[20:250].copy()
     a[rng.random(230) < 0.1] = 3
     want = TA.sw_ref(torch.as_tensor(a), torch.as_tensor(b))
-    before = KT.launches
+    before, wf_before = KT.launches, KT.wavefront_launches
     mat, best = ops.sw_tiled(torch.as_tensor(a, device=cuda),
                              torch.as_tensor(b, device=cuda),
                              tile_r=64, tile_c=64)
-    assert KT.launches - before == 4 * 5
+    # the 4 x 5 tiles in one dp_wavefront launch, no per-tile launch
+    assert (KT.launches - before, KT.wavefront_launches - wf_before) == (0, 1)
     assert torch.equal(mat.cpu(), want)
     assert float(best) == float(want.max())
+
+
+def _wf_inputs(kind, lead, n, m, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "sw":
+        a = torch.as_tensor(rng.integers(0, 4, lead + (n,)), dtype=torch.int32)
+        b = torch.as_tensor(rng.integers(0, 4, lead + (m,)), dtype=torch.int32)
+        bnd = lambda shape: torch.as_tensor(  # noqa: E731
+            rng.integers(0, 30, shape), dtype=torch.float32)
+    else:
+        a = torch.as_tensor(np.cumsum(rng.normal(size=lead + (n,)), -1),
+                            dtype=torch.float32)
+        b = torch.as_tensor(np.cumsum(rng.normal(size=lead + (m,)), -1),
+                            dtype=torch.float32)
+        bnd = lambda shape: torch.as_tensor(  # noqa: E731
+            rng.normal(size=shape), dtype=torch.float32)
+    return a, b, bnd(lead + (m,)), bnd(lead + (n,)), bnd(lead)
+
+
+def _wavefront_exact(cuda, kind, lead, n, m, tile):
+    ins = _wf_inputs(kind, lead, n, m, n + m + tile + len(lead))
+    want = KT.dp_wavefront_plain(*ins, kind=kind, tile_r=tile, tile_c=tile)
+    before, t_before = KT.wavefront_launches, KT.launches
+    got = KT.dp_wavefront(*(x.to(cuda) for x in ins), kind=kind,
+                          tile_r=tile, tile_c=tile)
+    torch.cuda.synchronize()
+    assert (KT.wavefront_launches - before, KT.launches - t_before) == (1, 0)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w)
+    return KT.last_grid
+
+
+@pytest.mark.parametrize("kind", ["sw", "dtw"])
+@pytest.mark.parametrize("lead", [(), (5,)])
+@pytest.mark.parametrize("tile,n,m", [(64, 192, 256), (128, 256, 384)])
+def test_dp_wavefront_exact(cuda, kind, lead, tile, n, m):
+    _wavefront_exact(cuda, kind, lead, n, m, tile)
+
+
+@pytest.mark.parametrize("kind", ["sw", "dtw"])
+def test_dp_wavefront_tile_8_long(cuda, kind):
+    _wavefront_exact(cuda, kind, (), 16, 10_000, 8)
+
+
+@pytest.mark.parametrize("kind", ["sw", "dtw"])
+def test_dp_wavefront_strips_outnumber_ctas(cuda, kind):
+    """5 x 128 strips of 128 columns, more than the CTAs the card holds at
+    once at that tile (its shared memory fits three per SM): CTAs walk
+    several strips in turn, waiting on the counters of other CTAs."""
+    grid = _wavefront_exact(cuda, kind, (5,), 128, 16_384, 128)
+    assert grid < 5 * 16_384 // 128
+
+
+def test_dp_wavefront_more_strips_than_resident_ctas(cuda):
+    """n = 128, m = 131,072 in 64-column strips: 2,048 strips, more than
+    the card holds CTAs at once. The plain tile loop would take minutes
+    here (4,096 tiles), so the matrix is held to the row-scan oracle
+    sw_ref, exact in fp32 for integer scores."""
+    rng = np.random.default_rng(7)
+    b = rng.integers(0, 4, 131_072).astype(np.int32)
+    a = b[1000:1128].copy()
+    a[rng.random(128) < 0.1] = 3
+    at, bt = torch.as_tensor(a, device=cuda), torch.as_tensor(b, device=cuda)
+    z = functools.partial(torch.zeros, dtype=torch.float32, device=cuda)
+    mat, bottom, right, corner = KT.dp_wavefront(
+        at, bt, z(131_072), z(128), z(()), kind="sw", tile_r=64, tile_c=64)
+    torch.cuda.synchronize()
+    assert KT.last_grid < 131_072 // 64
+    want = TA.sw_ref(at, bt)
+    assert torch.equal(mat, want)
+    assert torch.equal(bottom, want[-1]) and torch.equal(right, want[:, -1])
+    assert float(corner) == float(want[-1, -1])
+    assert float(mat.max()) >= 100            # the planted match is found
+
+
+def test_dtw_tiled_padding_on_the_card(cuda):
+    """DTW with the 1e18 padding of dtw_tiled, kernel against plain."""
+    from repro_torch.core import dtw as TD
+    rng = np.random.default_rng(3)
+    s = torch.as_tensor(np.cumsum(rng.normal(size=100)), dtype=torch.float32)
+    r = torch.as_tensor(np.cumsum(rng.normal(size=130)), dtype=torch.float32)
+    for tile in (64, 32):
+        want, want_d = TD.dtw_tiled(s, r, tile, tile)
+        before = KT.wavefront_launches
+        got, d = ops.dtw_tiled(s.to(cuda), r.to(cuda), tile, tile)
+        assert KT.wavefront_launches == before + 1
+        assert torch.equal(got.cpu(), want) and float(d) == float(want_d)
+
+
+def test_dp_wavefront_rejects_what_it_does_not_take(cuda):
+    z = functools.partial(torch.zeros, device=cuda)
+    i32 = torch.int32
+    with pytest.raises(ValueError, match="multiples"):
+        KT.dp_wavefront(z(30, dtype=i32), z(16, dtype=i32), z(16), z(30),
+                        z(()), kind="sw", tile_r=8, tile_c=8)
+    with pytest.raises(TypeError):
+        KT.dp_wavefront(z(16), z(16), z(16), z(16), z(()), kind="sw",
+                        tile_r=8, tile_c=8)
+    with pytest.raises(ValueError, match="tile"):
+        KT.dp_wavefront(z(256), z(256), z(256), z(256), z(()), kind="dtw",
+                        tile_r=256, tile_c=256)
+
+
+def test_mapper_aligns_in_one_launch_per_read(cuda):
+    from repro_torch.apps.read_mapper import MapperConfig, ReadMapper
+    from repro_torch.data import genomics
+    ref = genomics.make_reference(20_000, seed=1)
+    prof = genomics.ReadProfile("TEST", 1500, 100, 0.95)
+    reads = genomics.sample_reads(ref, prof, 2, seed=2)
+    on = ReadMapper(ref, MapperConfig(), device=cuda)
+    # the baseline schedule without kernels chains sequentially, as the
+    # kernel does, so every field is equal
+    off = ReadMapper(ref, MapperConfig(mode="baseline", use_kernels=False),
+                     device=cuda, index=on.index)
+    for read, truth in reads:
+        before, t_before = KT.wavefront_launches, KT.launches
+        res = on.map_read(read)
+        assert (KT.wavefront_launches - before, KT.launches - t_before) == (
+            1, 0)
+        assert abs(res.pos - truth) <= 200
+        assert res == off.map_read(read)
 
 
 def test_wavefront_batched_on_the_card(cuda):
@@ -211,11 +335,13 @@ def test_service_on_the_card_batches_tiles(cuda):
         for n in (30, 100, 200)]
     cfg = ServiceConfig(seq_bucket=64, dtw_tile=32, anchor_bucket=256)
     want = KernelService(cfg, device="cpu").submit(reqs)
-    t0, c0 = KT.launches, KC.launches
+    t0, w0, c0 = KT.launches, KT.wavefront_launches, KC.launches
     got = KernelService(cfg, device="cuda").submit(reqs)
-    # one dtw bucket (128 x 128): 4 x 4 tile positions, batch 3 each; one
-    # chain bucket (256 anchors): one chain_scan launch
-    assert (KT.launches - t0, KC.launches - c0) == (16, 1)
+    # one dtw bucket (128 x 128, batch 3): its 4 x 4 tiles in one
+    # dp_wavefront launch, no dp_tile launch; one chain bucket (256
+    # anchors): one chain_scan launch
+    assert (KT.launches - t0, KT.wavefront_launches - w0,
+            KC.launches - c0) == (0, 1, 1)
     for w, g in zip(want, got):
         for k in w:
             np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-4)
@@ -299,8 +425,9 @@ def test_rwkv_prefill_is_one_launch_per_layer(cuda):
 
 # tolerances of flash_attention against its plain version on the card: in
 # fp32 both sum 2,048-term dot products in fp32 in other orders (errors
-# near 1e-6 on outputs near 1); in bf16 both compute in fp32 from the same
-# bf16 inputs and round the output once, so they differ by at most about
+# near 1e-6 on outputs near 1); in bf16 the tensor-core kernel also rounds
+# p to bf16 for the p.v product (2^-9 relative per term, averaging out over
+# a row) and both round the output once, so they differ by at most about
 # one bf16 ulp of |out| <= 4 (2^-8 * 4 = 0.016)
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
              torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -326,6 +453,50 @@ def test_flash_attention_kernel_close(cuda, dtype, b, h, kvh, sq, skv, hd,
     assert KF.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_flash_attention_bf16_head_dims(cuda, hd):
+    """The tensor-core kernel at every head dim: GQA 3:1, ragged Sq and Skv
+    (Sq > Skv: the last rows see nothing), with and without a window."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    for sq, skv, win in ((200, 200, 0), (131, 77, 0), (300, 300, 50)):
+        q = torch.randn((2, 6, sq, hd), generator=g, device=cuda).bfloat16()
+        k = torch.randn((2, 2, skv, hd), generator=g, device=cuda).bfloat16()
+        v = torch.randn((2, 2, skv, hd), generator=g, device=cuda).bfloat16()
+        want = KF.flash_attention_plain(q, k, v, win)
+        got = KF.flash_attention(q, k, v, win)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_attention_bf16_reads_strided_views(cuda):
+    """The model's (B, S, heads, hd) bf16 tensors, seen as (B, heads, S,
+    hd), go to the tensor-core kernel through TMA maps with their own
+    strides."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 150, 8, 256), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, 150, 1, 256), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, 150, 1, 256), generator=g, device=cuda).bfloat16()
+    got = ops.flash_attention(q, k, v)
+    want = KF.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2))
+    torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_attention_bf16_refuses_what_tma_cannot_load(cuda):
+    """No quiet copy: a bf16 view that TMA cannot load raises."""
+    kv = torch.zeros((1, 1, 8, 32), device=cuda, dtype=torch.bfloat16)
+    rows36 = torch.zeros((1, 2, 8, 36), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):    # row stride 36
+        KF.flash_attention(rows36[..., :32], kv, kv)
+    rows40 = torch.zeros((1, 2, 8, 40), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):    # starts 2 bytes in
+        KF.flash_attention(rows40[..., 1:33], kv, kv)
+    got = KF.flash_attention(rows40[..., 8:40], kv, kv)   # 16 bytes in
+    assert got.shape == (1, 2, 8, 32)
 
 
 def test_flash_attention_kernel_reads_strided_views(cuda):
