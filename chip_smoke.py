@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -188,11 +190,117 @@ def check_kernels(dev) -> dict:
             log(f"[kernels] dp_tile dtw {tr}x{tc} batch={lead}: "
                 f"allclose(rtol=1e-5, atol=1e-4)={close} max_abs_err={err}")
             check(close, f"dp_tile dtw {tr}x{tc} {lead} differs")
+    errs["chain_scan"] = max(errs["chain_scan"], check_chain_edges(dev))
     errs["dp_wavefront"] = check_dp_wavefront(dev)
     errs["radix_rank"] = check_radix_rank(dev)
-    errs["ssm_scan"] = check_ssm_scan(dev)
+    errs["ssm_scan"] = max(check_ssm_scan(dev), check_ssm_edges(dev))
     errs["flash_attention"], errs["flash_shapes"] = check_flash_attention(dev)
     return errs
+
+
+def tie_scores(lead, n, t, g, dev):
+    """Integer-valued band scores (candidates tie), half masked to NEG, the
+    band reaching before row 0 unmasked (the NEG-seeded candidates tie
+    there); w of 15, 1 or 2 with a tenth NEG (invalid anchors)."""
+    import torch
+    scores = torch.randint(-3, 4, lead + (n, t), generator=g,
+                           device=dev).float()
+    scores[torch.rand(lead + (n, t), generator=g, device=dev) < 0.5] = NEG
+    choice = torch.tensor([15.0, 1.0, 2.0], device=dev)
+    w = choice[torch.randint(0, 3, lead + (n,), generator=g, device=dev)]
+    w[torch.rand(lead + (n,), generator=g, device=dev) < 0.1] = NEG
+    return scores, w
+
+
+def check_chain_edges(dev) -> float:
+    """The forwarding kernel bit for bit at its edges: T in {1, 33, 128}
+    (one slot, a second slot of one row, four slots) times N in {1, 31, 32,
+    33, 4096} (one row, part of a round, a round, a round and one, many),
+    ties and NEG weights, the second problem's w all NEG (the NEG-seeded
+    candidates then decide off); the mapper's T = 64 at N = 4096; and a
+    (13, 777, 64) stack, as the service's anchor buckets launch it."""
+    import torch
+    from repro_torch.kernels import chain_scan as KC
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    cases = [((2,), n, t) for t in (1, 33, 128)
+             for n in (1, 31, 32, 33, 4096)] + [((2,), 4096, 64),
+                                                ((13,), 777, 64)]
+    err, starts, ns_row = 0.0, 0, {}
+    for lead, n, t in cases:
+        scores, w = tie_scores(lead, n, t, g, dev)
+        if lead == (2,):
+            w[1] = NEG
+        f_ref, off_ref = KC.chain_scan_plain(scores, w)
+        f, off = KC.chain_scan(scores, w)
+        torch.cuda.synchronize()
+        same = torch.equal(f, f_ref) and torch.equal(off, off_ref)
+        err = max(err, float((f - f_ref).abs().max()))
+        starts += int((off == 0).sum())
+        check(same, f"chain_scan {lead + (n, t)} (ties, NEG w) differs from "
+              f"its plain version")
+        if n == 4096:       # two problems of 4,096 rows, one warp each
+            ms = time_cuda(lambda: KC.chain_scan(scores, w), reps=10,
+                           rounds=3)
+            ns_row[t] = round(ms / n * 1e6, 1)
+    log(f"[kernels] chain_scan at {len(cases)} edge shapes (T 1/33/128 x N "
+        f"1/31/32/33/4096 and 64 x 4096, P=2 with one all-NEG w; 13 x 777 x "
+        f"64): exact, "
+        f"{starts} chain starts; ns per serial row at N=4096 by T: {ns_row}")
+    return err
+
+
+def check_ssm_edges(dev) -> float:
+    """ssm_scan at B = 1 from a random state, y and the final state at
+    rtol = atol = 1e-4: dv in {1, 24, 64, 128} (one column to eight column
+    blocks), dk in {1, 8, 64}, T in {1, 33, 2048} (one step to many
+    chunks); dk = 1 and dv = 1 take the 4-byte staging path."""
+    import torch
+    from repro_torch.kernels import ssm_scan as KS
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    err, n = 0.0, 0
+    for dv in (1, 24, 64, 128):
+        for dk in (1, 8, 64):
+            for t in (1, 33, 2048):
+                ins = wkv_inputs(1, t, dk, dv, g, dev, True)
+                want_y, want_s = KS.ssm_scan_plain(*ins)
+                y, s_fin = KS.ssm_scan(*ins)
+                torch.cuda.synchronize()
+                e = max(float((y - want_y).abs().max()),
+                        float((s_fin - want_s).abs().max()))
+                err = max(err, e)
+                close = (torch.allclose(y, want_y, rtol=1e-4, atol=1e-4)
+                         and torch.allclose(s_fin, want_s, rtol=1e-4,
+                                            atol=1e-4))
+                check(close, f"ssm_scan (1, {t}, {dk}, {dv}) differs from "
+                      f"its plain version (max abs err {e})")
+                n += 1
+    log(f"[kernels] ssm_scan at {n} edge shapes (B=1, dv 1/24/64/128 x dk "
+        f"1/8/64 x T 1/33/2048, random s0): allclose(rtol=1e-4, atol=1e-4), "
+        f"max_abs_err={err}")
+    return err
+
+
+def ptxas_summary(text: str) -> dict:
+    """Registers, spill bytes and shared memory of every entry function in
+    one source's ptxas report."""
+    import re
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = {}
+        elif cur and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[cur]["spill_bytes"] = nums[1] + nums[2]
+        elif cur and "registers" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  line).group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 # (kind, lead, n, m, tile) of the dp_wavefront checks against the plain
@@ -477,11 +585,14 @@ def map_main_path(reference, reads, dev):
     want_chain = want_align = 0
     max_n, max_align = 0, (0, 0)
     results, by_profile = [], {}
+    sums = {"seed": 0.0, "chain": 0.0, "align": 0.0}
     t_all = time.perf_counter()
     for name, read, truth in ((n, r, t) for n, (r, t) in reads[1:]):
         torch.cuda.synchronize()
         res = mapper.map_read(read)
         ms = mapper.stage_ms
+        for stage in sums:
+            sums[stage] += ms.get(stage, 0.0)
         if res.n_anchors >= 2:
             want_chain += 1
             max_n = max(max_n, bucketing.round_up(res.n_anchors,
@@ -503,6 +614,9 @@ def map_main_path(reference, reads, dev):
     wall = time.perf_counter() - t_all
     launches = {"chain_scan": KC.launches,
                 "dp_wavefront": KT.wavefront_launches, "dp_tile": KT.launches}
+    log(f"[main] stages summed over the {len(results)} reads: seed "
+        f"{sums['seed']:.3f} ms, chain {sums['chain']:.3f} ms, align "
+        f"{sums['align']:.3f} ms")
     log(f"[main] {len(results)} reads in {wall:.3f} s; launches {launches}; "
         f"expected chain={want_chain} dp_wavefront={want_align} (one per "
         f"aligned read) dp_tile=0; longest alignment {max_align}")
@@ -934,11 +1048,19 @@ def kernel_line(dev, launches, errs, max_n, max_align):
     chain_ms = time_cuda(lambda: KC.chain_scan(scores, w), reps=20)
     chain_plain = time_cuda(lambda: KC.chain_scan_plain(scores, w), reps=1,
                             rounds=3)
+    # the timed call at the mapper's largest anchor bucket, held bit for bit
+    f, off = KC.chain_scan(scores, w)
+    f_ref, off_ref = KC.chain_scan_plain(scores, w)
+    check(torch.equal(f, f_ref) and torch.equal(off, off_ref),
+          f"chain_scan N={max_n} T={t} (the timed call) differs from its "
+          f"plain version")
     c_bytes = max_n * t * 4 + max_n * 4 + max_n * 4 + max_n * 4
     c_bound, c_by = bound(c_bytes, 2 * max_n * t)
+    chain_ns_row = chain_ms / max_n * 1e6
     log(f"[time] chain_scan N={max_n} T={t}: kernel {chain_ms:.4f} ms, "
         f"plain {chain_plain:.3f} ms, bound {c_bound:.6f} ms ({c_by}); "
-        f"{chain_ms / max_n * 1e6:.1f} ns per serial row")
+        f"{chain_ns_row:.1f} ns per serial row; share of the bound "
+        f"{c_bound / chain_ms:.6f}")
 
     tr = tc = 64
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1020,7 +1142,8 @@ def kernel_line(dev, launches, errs, max_n, max_align):
          "launches": launches["chain_scan"],
          "max_abs_err": errs["chain_scan"], "ms": chain_ms,
          "plain_ms": chain_plain, "bound_ms": c_bound, "bound_by": c_by,
-         "library_ms": None, "shape": [max_n, t]},
+         "library_ms": None, "shape": [max_n, t],
+         "ns_per_row": chain_ns_row, "bound_share": c_bound / chain_ms},
         {"name": "dp_tile", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dtw_wavefront.cu",
          "replaces": "src/repro/kernels/dtw_wavefront.py:102",
@@ -1063,9 +1186,10 @@ def busy_us(spans) -> float:
 
 def device_trace(mapper, read):
     """One read through the kernels under torch.profiler (CUDA activity
-    only): the card's busy share of the wall time, the align stage's host
-    ms, and the device ms of its dp_wavefront launches (and of any dp_tile
-    launch). Returns None values when the trace holds no device events."""
+    only): the card's busy share of the wall time, the chain and align
+    stages' host ms, and the device ms of their chain_scan and dp_wavefront
+    launches (and of any dp_tile launch). Returns None values when the
+    trace holds no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1083,14 +1207,19 @@ def device_trace(mapper, read):
     busy = busy_us(spans)
     wfs = [e - s for s, e, name in spans if "dp_wavefront_kernel" in name]
     tiles = [e - s for s, e, name in spans if "dp_tile_kernel" in name]
+    chains = [e - s for s, e, name in spans if "chain_scan_kernel" in name]
     out = {"read_len": len(read), "wall_ms": wall_us / 1e3,
            "busy_share": busy / wall_us,
+           "chain_host_ms": mapper.stage_ms.get("chain"),
+           "chain_device_ms": sum(chains) / 1e3 if chains else None,
            "align_host_ms": mapper.stage_ms.get("align"),
            "dp_wavefront_spans": len(wfs), "dp_tile_spans": len(tiles),
            "align_device_ms": sum(wfs) / 1e3 if wfs else None}
     log(f"[trace] {len(read)}-base read: wall {wall_us / 1e3:.3f} ms under "
         f"the profiler, device busy {busy / 1e3:.3f} ms "
         f"(share {out['busy_share']:.4f}), {len(spans)} device events; "
+        f"chain {out['chain_host_ms']:.3f} ms host, {len(chains)} chain_scan "
+        f"launches of {out['chain_device_ms']} ms device time; "
         f"align {out['align_host_ms']:.3f} ms host, {len(wfs)} dp_wavefront "
         f"launches of {out['align_device_ms']} ms device time, "
         f"{len(tiles)} dp_tile launches")
@@ -1446,7 +1575,8 @@ def ssm_scan_entry(dev, errs, lm) -> dict:
     b_ms, b_by = bound(n_bytes, 5 * b * t * dk * dv)
     log(f"[time] ssm_scan {SCAN_SHAPES[0]}: kernel {ms:.4f} ms, plain "
         f"{plain:.3f} ms, wkv_chunked {chunked:.4f} ms, bound {b_ms:.6f} ms "
-        f"({b_by}); {ms / t * 1e6:.1f} ns per serial step")
+        f"({b_by}); {ms / t * 1e6:.1f} ns per serial step; share of the "
+        f"bound {b_ms / ms:.4f}")
     launches = lm["launches"]["serve"] + lm["launches"]["generate"]
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -1454,6 +1584,7 @@ def ssm_scan_entry(dev, errs, lm) -> dict:
             "launches": launches, "max_abs_err": errs["ssm_scan"], "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "shape": list(SCAN_SHAPES[0]),
+            "ns_per_step": ms / t * 1e6, "bound_share": b_ms / ms,
             "chunked_torch_ms": chunked,
             "device_us": lm["ssm_scan_device_us"]}
 
@@ -1770,15 +1901,25 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda}")
     log(smi)
 
+    # a build of its own, every run, so that ptxas reports on every kernel
+    build_dir = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(build_dir, ignore_errors=True)
+    os.environ["REPRO_TORCH_BUILD_DIR"] = str(build_dir)
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] {len(_build.SOURCES)} kernels in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name, text in _build.PTXAS_LOG.items():
-        for line in text.splitlines():
-            if ("registers" in line or "spill" in line
-                    or "Compiling entry" in line):
-                log(f"[build] {name}: {line.strip()}")
+    ptxas = {name: ptxas_summary(text)
+             for name, text in _build.PTXAS_LOG.items()}
+    for name, fns in ptxas.items():
+        for fn, info in fns.items():
+            log(f"[build] {name} {fn}: {info.get('registers')} registers, "
+                f"{info.get('spill_bytes')} spill bytes, "
+                f"{info.get('static_smem_bytes')} bytes static shared memory")
+    for name in ("chain_scan", "ssm_scan"):
+        check(ptxas[name] and all(info.get("spill_bytes") == 0
+                                  for info in ptxas[name].values()),
+              f"{name} spills registers (or ptxas did not report)")
     hgmma = sass_hgmma(_build)
     for fn, info in hgmma.items():
         log(f"[build] sass {fn}: {info['hgmma']} HGMMA, first: "
@@ -1811,6 +1952,7 @@ def main(argv=None) -> int:
     by_name = {k["name"]: k for k in line["kernels"]}
     for name in ("chain_scan", "dp_wavefront", "dp_tile"):
         by_name[name]["service_launches"] = svc_info["launches"][name]
+    by_name["chain_scan"]["ptxas"] = ptxas["chain_scan"]
     line["service"] = svc_info["per_kernel"]
     longest = max((r for _, (r, _) in reads[1:]), key=len)
     traces = [device_trace(mapper, reads[1][1][0][:2000]),
@@ -1826,6 +1968,7 @@ def main(argv=None) -> int:
     lm = lm_serving(dev, args.seed)
     lm["fp32_kernel_vs_plain"] = on_off
     line["kernels"].append(ssm_scan_entry(dev, errs, lm))
+    line["kernels"][-1]["ptxas"] = ptxas["ssm_scan"]
     line["lm"] = lm
     log(f"[lm] phase took {time.perf_counter() - t_lm:.1f} s")
 

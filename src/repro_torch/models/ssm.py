@@ -1,11 +1,11 @@
 """RWKV6 (Finch) blocks (port of the RWKV part of ``repro.models.ssm``).
 
 Prefill and chunked prefill run the WKV recurrence over the whole sequence
-on the hand-written kernel (``kernels.ssm_scan``: one CTA per batch-head
-row, the state carried in registers); decode runs the O(1)-state single
-step of ``core.linear_attn.wkv_decode_step``. The recurrent state is the
-cache. The reference runs its prefill on the chunk-parallel jnp
-``wkv_chunked``; the kernel computes the same function.
+on the hand-written kernel (``kernels.ssm_scan``: the state of every
+batch-head row spread over the card as register tiles); decode runs the
+O(1)-state single step of ``core.linear_attn.wkv_decode_step``. The
+recurrent state is the cache. The reference runs its prefill on the
+chunk-parallel jnp ``wkv_chunked``; the kernel computes the same function.
 
 RWKV6 here is what the reference implements: static token-shift mixing
 vectors plus the data-dependent decay (a low-rank MLP modulating w per

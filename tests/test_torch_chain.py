@@ -189,3 +189,152 @@ def test_chain_stage_batched_equals_single_calls(mode):
         assert torch.equal(f[i], f1) and torch.equal(p[i], p1)
         f1, p1 = TOPS.chain_anchors(q[i], r[i], T=64, anchor_valid=v[i])
         assert torch.equal(fk[i], f1) and torch.equal(pk[i], p1)
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel's forwarding order (csrc/chain_scan.cu), modelled in torch
+# --------------------------------------------------------------------------
+
+_GARBAGE = 3e38     # what a ring slot holds while its block is in flight
+
+
+def _forwarding_chain(scores, w):
+    """chain_scan.cu's order, step by step: one warp per problem (lanes are
+    the last axis), rows in rounds of 32 owned by lane row mod 32, K =
+    ceil(T/32) running (best, j) slots per lane, each new f shuffled from
+    its owner and added to every row in flight, ties replacing (t only
+    decreases), virtual rows before 0 that weigh NEG, take no candidate and
+    so close at NEG, and the scores read from the kernel's ring of K+2
+    shared-memory blocks at the kernel's addresses (a row outside the band
+    reads the -inf sentinel past the ring). A block in flight holds garbage
+    until the kernel's cp.async.wait would have landed it, so a read the
+    kernel's ordering does not cover shows up in f. scores (P, N, T), w (P,
+    N) fp32."""
+    p, n, t = scores.shape
+    k = -(-t // 32)
+    rr = k + 2
+    ts = t + (t & 1)
+    blk = 32 * ts
+    sent = rr * blk
+    nblocks = -(-n // 32)
+    lane = torch.arange(32)
+    ring = torch.full((p, rr * blk + 1), _GARBAGE)
+    ring[:, sent] = float("-inf")
+    groups = []                                  # cp.async groups in order
+
+    def issue(b):
+        if b is None or b >= nblocks:
+            groups.append(None)
+            return
+        base = (b % rr) * blk
+        ring[:, base:base + blk] = _GARBAGE
+        groups.append(b)
+
+    def land(keep):                              # cp.async.wait_group keep
+        while len(groups) > keep:
+            b = groups.pop(0)
+            if b is None:
+                continue
+            base = (b % rr) * blk
+            rows = min(32, n - 32 * b)
+            for row in range(rows):
+                ring[:, base + row * ts:base + row * ts + t] = \
+                    scores[:, 32 * b + row]
+
+    def wload(m):
+        row = 32 * m + lane
+        got = w[:, row.clamp(0, n - 1)]
+        return torch.where(row < 0, torch.tensor(TC.NEG, dtype=torch.float32),
+                           torch.where(row < n, got, torch.zeros(())))
+
+    best = torch.full((p, 32, k), float("-inf"))
+    bj = torch.zeros((p, 32, k), dtype=torch.int64)
+    fc = torch.full((p, 32), TC.NEG, dtype=torch.float32)
+    fo = torch.zeros((p, 32))
+    oo = torch.zeros((p, 32), dtype=torch.int64)
+    f = torch.empty((p, n))
+    off = torch.empty((p, n), dtype=torch.int32)
+    m0 = -((t - 1 + 31) // 32)
+    for b in range(k + 1):
+        issue(b)
+    wnext = wload(m0)
+    for m in range(m0, nblocks):
+        issue(m + k + 1 if m >= 0 else None)
+        land(1)
+        wcur, wnext = wnext, wload(m + 1)
+        row = 32 * m + lane
+        cb = [(m + d) % rr * blk + lane * ts + 32 * d - 1 for d in range(k)]
+        lim = [torch.full((32,), t - 32 * d if m + d >= 0 else -(1 << 30))
+               for d in range(k)]
+        cb_next = (m + k) % rr * blk + lane * ts + 32 * k - 1
+        for s in range(32):
+            j = 32 * m + s - 1
+            fj = fc[:, (s + 31) % 32]
+            lt = lane - s + 1
+            bw = torch.maximum(best[:, :, 0], wcur)
+            for d in range(k):
+                inb = lt <= lim[d]
+                c = ring[:, torch.where(inb, cb[d] + lt, sent)] + fj[:, None]
+                if d == 0:
+                    c0 = c
+                take = inb & (c >= best[:, :, d])
+                best[:, :, d] = torch.where(take, c, best[:, :, d])
+                bj[:, :, d] = torch.where(take, j, bj[:, :, d])
+            fc = torch.maximum(c0, bw)
+            close = lt == 1
+            fo = torch.where(close, fc, fo)
+            oo = torch.where(close, torch.where(best[:, :, 0] >= wcur,
+                                                row - bj[:, :, 0], 0), oo)
+            best[:, :, 0] = torch.where(close, float("-inf"), best[:, :, 0])
+            cb[0] = torch.where(close, cb_next, cb[0])
+            lim[0] = torch.where(close, t - 32 * k, lim[0])
+        ok = (row >= 0) & (row < n)
+        f[:, row[ok]] = fo[:, ok]
+        off[:, row[ok]] = oo[:, ok].int()
+        best = torch.roll(best, -1, dims=2)
+        bj = torch.roll(bj, -1, dims=2)
+    return f, off
+
+
+def _tie_scores(p, n, t, seed):
+    """(P, N, T) integer-valued band scores (so candidates tie), a random
+    half masked to NEG; the band reaches before row 0 unmasked, so rows i <
+    T take S[i, t-1] + NEG for i - t < 0 and tie there. w of 15 or small
+    integers with a tenth NEG (invalid anchors); the last problem's w is
+    all NEG, so that f sits at NEG and the seeded candidates decide off."""
+    rng = np.random.default_rng(seed)
+    scores = rng.integers(-3, 4, (p, n, t)).astype(np.float32)
+    scores[rng.random((p, n, t)) < 0.5] = -1e18
+    w = rng.choice(np.array([15.0, 1.0, 2.0], np.float32), (p, n))
+    w[rng.random((p, n)) < 0.1] = -1e18
+    w[-1] = -1e18
+    return scores, w
+
+
+@pytest.mark.parametrize("n,t", [(20, 1), (20, 33), (100, 128), (257, 64),
+                                 (70, 33), (31, 128), (200, 64)])
+def test_forwarding_order_is_the_row_scan_bit_for_bit(n, t):
+    """The kernel's order, as modelled above, against chain_sequential (JAX
+    and port) and chain_scan_pallas (interpret mode), bit for bit: f and
+    off, for 3 problems, with ties, NEG weights and N < 32, N < T or N not a
+    multiple of 32."""
+    scores, w = _tie_scores(3, n, t, seed=n * t)
+    f, off = _forwarding_chain(torch.as_tensor(scores), torch.as_tensor(w))
+    f_plain, off_plain = KC.chain_scan_plain(torch.as_tensor(scores),
+                                             torch.as_tensor(w))
+    assert torch.equal(off, off_plain) and torch.equal(f, f_plain)
+    pad = (-n) % 256
+    for i in range(3):
+        f_ref, off_ref = C.chain_sequential(jnp.asarray(scores[i]),
+                                            jnp.asarray(w[i]))
+        np.testing.assert_array_equal(off[i].numpy(), np.asarray(off_ref))
+        np.testing.assert_array_equal(f[i].numpy(), np.asarray(f_ref))
+        sp = np.concatenate([scores[i], np.full((pad, t), -1e18,
+                                                np.float32)])
+        wp = np.concatenate([w[i], np.full((pad,), -1e18, np.float32)])
+        f_pal, off_pal = chain_scan_pallas(jnp.asarray(sp), jnp.asarray(wp),
+                                           block=256)
+        np.testing.assert_array_equal(off[i].numpy(), np.asarray(off_pal)[:n])
+        np.testing.assert_array_equal(f[i].numpy(), np.asarray(f_pal)[:n])
+    # ties did occur, and so did chains that start at a NEG weight
+    assert (off > 0).any() and (off == 0).any()

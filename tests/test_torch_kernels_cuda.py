@@ -75,6 +75,57 @@ def test_chain_scan_kernel_rejects_what_it_does_not_take(cuda):
                       torch.zeros(10, device=cuda))
 
 
+def _tie_scores(lead, n, t, seed):
+    """Integer-valued band scores (candidates tie), half masked to NEG, the
+    band reaching before row 0 unmasked (the NEG-seeded candidates tie
+    there); w of 15, 1 or 2 with a tenth NEG (invalid anchors)."""
+    rng = np.random.default_rng(seed)
+    scores = rng.integers(-3, 4, lead + (n, t)).astype(np.float32)
+    scores[rng.random(lead + (n, t)) < 0.5] = -1e18
+    w = rng.choice(np.array([15.0, 1.0, 2.0], np.float32), lead + (n,))
+    w[rng.random(lead + (n,)) < 0.1] = -1e18
+    return torch.as_tensor(scores), torch.as_tensor(w)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 4096])
+@pytest.mark.parametrize("t", [1, 33, 128])
+def test_chain_scan_kernel_exact_at_the_edges(cuda, t, n):
+    """The forwarding kernel bit for bit: one row, part of a round, a round,
+    a round and one, and many; one slot (T=1), a second slot of one row
+    (T=33), four slots (T=128); ties; NEG weights; and a problem whose w is
+    all NEG, where the NEG-seeded candidates decide off."""
+    scores, w = _tie_scores((2,), n, t, seed=n + t)
+    w[1] = -1e18
+    f_ref, off_ref = KC.chain_scan_plain(scores, w)
+    before = KC.launches
+    f, off = KC.chain_scan(scores.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert KC.launches == before + 1
+    assert torch.equal(off.cpu(), off_ref)
+    assert torch.equal(f.cpu(), f_ref)
+
+
+def test_chain_scan_kernel_stack_of_13(cuda):
+    """A (13, N, 64) stack, as the service's anchor buckets launch it."""
+    scores, w = _tie_scores((13,), 777, 64, seed=13)
+    f_ref, off_ref = KC.chain_scan_plain(scores, w)
+    f, off = KC.chain_scan(scores.to(cuda), w.to(cuda))
+    assert torch.equal(off.cpu(), off_ref) and torch.equal(f.cpu(), f_ref)
+
+
+def test_chain_scan_kernel_reads_unaligned_rows(cuda):
+    """Scores that start 4 bytes past a 16-byte boundary take the 4-byte
+    staging path."""
+    scores, w = _tie_scores((), 300, 64, seed=5)
+    buf = torch.empty(300 * 64 + 1, device=cuda)
+    view = buf[1:].view(300, 64)
+    view.copy_(scores.to(cuda))
+    assert view.data_ptr() % 16 != 0
+    f_ref, off_ref = KC.chain_scan_plain(scores, w)
+    f, off = KC.chain_scan(view, w.to(cuda))
+    assert torch.equal(off.cpu(), off_ref) and torch.equal(f.cpu(), f_ref)
+
+
 def _sw_inputs(lead, tr, tc, seed):
     rng = np.random.default_rng(seed)
     return (torch.as_tensor(rng.integers(0, 30, lead + (tc,)),
@@ -369,6 +420,42 @@ def test_ssm_scan_kernel_close(cuda, b, t, dk, dv, with_state):
     y, s_fin = KS.ssm_scan(*dev_ins)
     torch.cuda.synchronize()
     assert KS.launches == before + 1
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_fin, want_s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("t", [1, 33, 2048])
+@pytest.mark.parametrize("dk", [1, 8, 64])
+@pytest.mark.parametrize("dv", [1, 24, 64, 128])
+def test_ssm_scan_kernel_edges(cuda, dv, dk, t):
+    """B = 1 from a random state: one column to eight blocks of 16, one to
+    64 state rows, one step to many chunks; dk = 1 and dv = 1 take the
+    4-byte staging path."""
+    ins = _wkv_inputs(1, t, dk, dv, dv * dk + t, True)
+    dev_ins = [x.to(cuda) for x in ins]
+    want_y, want_s = KS.ssm_scan_plain(*dev_ins)
+    y, s_fin = KS.ssm_scan(*dev_ins)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_fin, want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_scan_kernel_reads_unaligned_rows(cuda):
+    """Inputs that start 4 bytes past a 16-byte boundary take the 4-byte
+    staging path at dk = dv = 64."""
+    ins = _wkv_inputs(2, 40, 64, 64, 3, True)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        view = buf[1:].view(x.shape)
+        view.copy_(x.to(cuda))
+        return view
+
+    r, w, k, v = (shifted(x) for x in ins[:4])
+    assert r.data_ptr() % 16 != 0
+    u, s0 = ins[4].to(cuda), ins[5].to(cuda)
+    want_y, want_s = KS.ssm_scan_plain(r, w, k, v, u, s0)
+    y, s_fin = KS.ssm_scan(r, w, k, v, u, s0)
     torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s_fin, want_s, rtol=1e-4, atol=1e-4)
 

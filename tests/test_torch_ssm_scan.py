@@ -191,3 +191,64 @@ def test_wrapper_launches_nothing_off_the_card():
     with pytest.raises(ValueError, match="no kernel"):
         TK.ssm_scan(*meta)
     assert TK.launches == before
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel's readout order (csrc/ssm_scan.cu), modelled in torch
+# --------------------------------------------------------------------------
+
+def _tile_readout_scan(r, w, k, v, u, s0, dk_max=64):
+    """ssm_scan.cu's order: dk padded with zero rows to dk_max; row group a
+    (one lane per column quad) holds the rows 4a .. 4a+3; the state update
+    is the plain version's, element by element; the readout of column j is
+    summed per row group over its 4 rows in order, then over the 16 row
+    groups as the kernel's half-warp butterfly adds them: xor 8, 4, 2, 1,
+    each lane adding what it kept and what it received, and y_j is the sum
+    at row group 4 (j mod 4), the lane that writes it. fp32 throughout."""
+    b, t, dk = r.shape
+    dv = v.shape[-1]
+    pad = lambda x: torch.nn.functional.pad(x, (0, dk_max - dk))  # noqa
+    r, w, k = pad(r), pad(w), pad(k)
+    uu = pad(torch.zeros(dk) if u is None else u)
+    s = torch.zeros(b, dk_max, dv)
+    if s0 is not None:
+        s[:, :dk] = s0
+    groups = dk_max // 4
+    lane = torch.arange(groups)
+    writer = 4 * (torch.arange(dv) % 4)
+    ys = []
+    for i in range(t):
+        kv = k[:, i, :, None] * v[:, i, None, :]
+        term = r[:, i, :, None] * (uu[:, None] * kv + s)    # S_{t-1}
+        term = term.view(b, groups, 4, dv)                  # (a, e)
+        part = ((term[:, :, 0] + term[:, :, 1]) + term[:, :, 2]) \
+            + term[:, :, 3]
+        for dist in (8, 4, 2, 1):
+            part = part + part[:, lane ^ dist]
+        ys.append(part.gather(1, writer.expand(b, 1, dv))[:, 0])
+        s = w[:, i, :, None] * s + kv
+    return torch.stack(ys, 1), s[:, :dk]
+
+
+@pytest.mark.parametrize("b,t,dk,dv,chunk", [(2, 48, 64, 64, 16),
+                                             (3, 33, 8, 24, None),
+                                             (1, 17, 1, 1, None),
+                                             (2, 64, 16, 128, 32)])
+def test_tile_readout_order_matches_plain_and_pallas(b, t, dk, dv, chunk):
+    """The kernel's order against the plain scan at 1e-5 (y and the final
+    state, from a random state) and against ssm_scan_pallas in interpret
+    mode at the reference kernel tests' 1e-4 (zero state, T a multiple of
+    the chunk)."""
+    r, w, k, v, u = _t(*_inputs(b, t, dk, dv, seed=b * t + dk))
+    s0 = torch.as_tensor(np.random.default_rng(dv).normal(
+        size=(b, dk, dv)).astype(np.float32))
+    y, s_fin = _tile_readout_scan(r, w, k, v, u, s0)
+    want_y, want_s = TK.ssm_scan_plain(r, w, k, v, u, s0)
+    torch.testing.assert_close(y, want_y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s_fin, want_s, rtol=1e-5, atol=1e-5)
+    if chunk is not None:
+        y0, _ = _tile_readout_scan(r, w, k, v, u, None)
+        want_pal = ssm_scan_pallas(*(x.numpy() for x in (r, w, k, v, u)),
+                                   chunk=chunk)
+        np.testing.assert_allclose(y0.numpy(), np.asarray(want_pal),
+                                   rtol=1e-4, atol=1e-4)
