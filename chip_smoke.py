@@ -8,21 +8,27 @@ mixed submit through ``KernelService``
 (map, seed, chain, sw, dtw, sort, scan) and holds every result to its
 direct call, sorts the sort traffic through the radix-rank kernel
 (``ops.radix_sort_chunks``), checks kernels-on against kernels-off, and
-times each kernel. Then the LM paths at full width: RWKV-6 1.6B
-(``rwkv6-1.6b``) and gemma-2b (``gemma-2b``). For each, an fp32 prefill with
-the kernel (the WKV scan, flash attention) held against the plain version,
-one prompt fed through ``generate``'s chunk path and through one prefill
-with the last logits gated, and bf16 serving through ``launch.serve``
-(batch 4, 2,048-token prompts, 32 greedy tokens) and ``engine.generate``
-(chunked prefill of two ragged prompts).
+times each kernel. Then the paper's last two kernels in plain torch: SpMV
+(``core.spmv``, two matrices of over 10^6 nonzeros) and Needleman-Wunsch
+(``core.align.nw_tiled`` at 2,048 x 2,048), each against an oracle. Then
+the LM paths at full width: RWKV-6 1.6B (``rwkv6-1.6b``) and gemma-2b
+(``gemma-2b``). For each, an fp32 prefill with the kernel (the WKV scan,
+flash attention) held against the plain version, one prompt fed through
+``generate``'s chunk path and through one prefill with the last logits
+gated, the continuous-batching ``serve.Scheduler`` (8 requests on 4 slots,
+every greedy stream against per-request ``generate``, ``score()``, and
+``KernelService(lm=...)``'s generate/score requests), and bf16 serving
+through ``launch.serve`` (batch 4, 2,048-token prompts, 32 greedy tokens),
+``engine.generate`` (chunked prefill of two ragged prompts) and the
+scheduler (continuous and static admission).
 
     python3 chip_smoke.py [--seed 0]
 
 Exits non-zero, printing no result, without a CUDA card or without the
 repository's ``src/`` beside it. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is a JSON object with
-one entry per kernel and the LM paths' serving numbers (``lm``,
-``attn_lm``).
+one entry per kernel, the SpMV and NW numbers (``paper_kernels``) and the
+LM paths' serving numbers (``lm``, ``attn_lm``).
 """
 
 from __future__ import annotations
@@ -993,8 +999,13 @@ def radix_rank_entry(dev, rank_info, errs):
 # phase 4: kernels on against kernels off
 # --------------------------------------------------------------------------
 
+# bases of each read mapped with kernels on and off: the plain squire tiles
+# take ~35 s per read at 2,000 bases, a quarter of that at 1,000
+ON_OFF_BASES = 1000
+
+
 def kernels_on_vs_off(mapper, reads, dev):
-    """The first 2,000 bases of one read per profile, mapped with the
+    """The first ON_OFF_BASES bases of one read per profile, mapped with the
     kernels and without them on the card. Against the baseline schedule
     (sequential chain, row-by-row SW) every field is equal; against the
     squire schedule without kernels (blocked chain, whose fp32 sums
@@ -1012,7 +1023,7 @@ def kernels_on_vs_off(mapper, reads, dev):
         if name in seen:
             continue
         seen.add(name)
-        part = read[:2000]
+        part = read[:ON_OFF_BASES]
         on = mapper.map_read(part)
         for mode, m in off.items():
             t0 = time.perf_counter()
@@ -1229,6 +1240,150 @@ def device_trace(mapper, read):
 
 
 # --------------------------------------------------------------------------
+# phase paper_kernels: SpMV (Fig. 1c) and Needleman-Wunsch (§V-C)
+# --------------------------------------------------------------------------
+
+# (name, rows = columns, nonzeros per row at density, skew) of the SpMV
+# checks: 65,536 x 65,536 with 16 nonzeros per row (1,048,576) and with
+# power-law row lengths around 32 (skew 0.5: Lomax(3) lengths, mean 17 per
+# row, 1.08 million nonzeros for seed 0, longest row 1,180). Both pass 10^6
+# nonzeros while the ELL plan, whose width is the longest row, stays at
+# 8 MB and ~0.6 GB (int32 columns and fp32 values); skew 1 would give
+# Lomax(2) lengths whose longest row (and plan) grows ~10x
+SPMV_CASES = (("uniform", 65_536, 16, 0.0), ("skewed", 65_536, 32, 0.5))
+SPMV_CHUNKS = 64
+SPMV_RTOL = 1e-4              # of max |y|
+ELL_MAX_BYTES = 4e9
+NW_LEN, NW_TILE, NW_REF_LEN = 2048, 64, 256
+
+
+def nw_oracle(a, b, match=2.0, mismatch=-4.0, gap=4.0):
+    """Needleman-Wunsch by a double loop over Python numbers (exact for the
+    integer scores): the (len(a), len(b)) matrix with linear-gap
+    boundaries M[i, -1] = -(i+1)*gap, M[-1, j] = -(j+1)*gap."""
+    import numpy as np
+    n, m = len(a), len(b)
+    prev = [-gap * (j + 1) for j in range(m)]
+    out = np.empty((n, m), np.float32)
+    for i in range(n):
+        ai, left = a[i], -gap * (i + 1)
+        diag = left + gap
+        row = [0.0] * m
+        for j in range(m):
+            h = max(diag + (match if ai == b[j] else mismatch),
+                    prev[j] - gap, left - gap)
+            row[j] = h
+            diag, left = prev[j], h
+        out[i] = row
+        prev = row
+    return out
+
+
+def spmv_case(dev, name, n, per_row, skew, seed) -> dict:
+    """random_csr on the card; spmv_chunked (ELL plan of SPMV_CHUNKS worker
+    chunks) and spmv_segsum against each other and against
+    torch.sparse_csr_tensor(...) @ x (used here only as this check), each
+    within SPMV_RTOL of max |y|; then the ms of each on the card."""
+    import torch
+    from repro_torch.core import spmv as TS
+
+    t0 = time.perf_counter()
+    m = TS.random_csr(n, n, per_row / n, seed=seed, skew=skew, device=dev)
+    gen_s = time.perf_counter() - t0
+    nnz = int(m.data.shape[0])
+    lens = torch.diff(m.indptr)
+    check(nnz >= 1_000_000, f"spmv {name}: {nnz} nonzeros < 10^6")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn(n, generator=g, device=dev)
+    t0 = time.perf_counter()
+    cols, vals = TS.ell_plan(m, n, SPMV_CHUNKS, dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    ell_bytes = cols.numel() * 4 + vals.numel() * 4     # int32 + fp32
+    check(ell_bytes <= ELL_MAX_BYTES, f"spmv {name}: ELL plan of "
+          f"{ell_bytes} bytes")
+    y_chunk = TS.spmv_chunked(m, x, n, num_chunks=SPMV_CHUNKS)
+    y_seg = TS.spmv_segsum(m, x, n)
+    sparse = torch.sparse_csr_tensor(m.indptr, m.indices, m.data, (n, n))
+    y_lib = sparse @ x
+    scale = float(y_lib.abs().max())
+    errs = {"chunked_vs_segsum": float((y_chunk - y_seg).abs().max()),
+            "chunked_vs_sparse": float((y_chunk - y_lib).abs().max()),
+            "segsum_vs_sparse": float((y_seg - y_lib).abs().max())}
+    for what, e in errs.items():
+        check(e <= SPMV_RTOL * scale, f"spmv {name}: {what} differ by {e} "
+              f"> {SPMV_RTOL} * {scale}")
+    ms_chunk = time_cuda(lambda: TS.spmv_ell(cols, vals, x, n), reps=20)
+    ms_seg = time_cuda(lambda: TS.spmv_segsum(m, x, n), reps=20)
+    ms_lib = time_cuda(lambda: sparse @ x, reps=20)
+    # indptr, indices, data and x read once, y written once
+    n_bytes = 4 * ((n + 1) + 2 * nnz + 2 * n)
+    b_ms, b_by = bound(n_bytes, 2 * nnz)
+    log(f"[spmv] {name} {n}x{n}, {nnz} nonzeros (rows {int(lens.min())}-"
+        f"{int(lens.max())}), skew {skew}: generated in {gen_s:.2f} s, ELL "
+        f"plan {tuple(cols.shape)} of {ell_bytes} bytes packed in "
+        f"{pack_s:.2f} s; max |y| {scale:.4f}, errors {errs}; "
+        f"spmv_chunked (spmv_ell on the plan) {ms_chunk:.4f} ms, "
+        f"spmv_segsum {ms_seg:.4f} ms, sparse_csr @ x {ms_lib:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})")
+    del cols, vals, sparse
+    return {"name": name, "n": n, "nnz": nnz, "skew": skew,
+            "max_row": int(lens.max()), "chunks": SPMV_CHUNKS,
+            "ell_bytes": ell_bytes, "max_abs_y": scale, "errors": errs,
+            "rtol": SPMV_RTOL, "gen_s": gen_s, "pack_s": pack_s,
+            "ms_chunked": ms_chunk, "ms_segsum": ms_seg,
+            "ms_sparse_csr": ms_lib, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def paper_kernels(dev, seed) -> dict:
+    """SpMV at two matrices of >= 10^6 nonzeros, then Needleman-Wunsch:
+    nw_tiled at NW_LEN^2 in NW_TILE tiles (the plain tile on the port's
+    run_wavefront) and nw_ref at NW_REF_LEN^2, each equal to the double-loop
+    oracle exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.core import align as TA
+
+    out = {"spmv": [spmv_case(dev, name, n, per_row, skew, seed)
+                    for name, n, per_row, skew in SPMV_CASES]}
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 70)
+    a = rng.integers(0, 4, NW_LEN)
+    b = a.copy()                    # a with one base in ten changed
+    hit = rng.random(NW_LEN) < 0.1
+    b[hit] = (b[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    t0 = time.perf_counter()
+    want = nw_oracle(a.tolist(), b.tolist())
+    oracle_s = time.perf_counter() - t0
+    at = torch.as_tensor(a, dtype=torch.int32, device=dev)
+    bt = torch.as_tensor(b, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mat, score = TA.nw_tiled(at, bt, tile_r=NW_TILE, tile_c=NW_TILE)
+    torch.cuda.synchronize()
+    tiled_ms = (time.perf_counter() - t0) * 1e3
+    got = mat.cpu().numpy()
+    check(np.array_equal(got, want) and float(score) == want[-1, -1],
+          f"nw_tiled {NW_LEN}^2 differs from the oracle in "
+          f"{int((got != want).sum())} cells")
+    k = NW_REF_LEN
+    ref = TA.nw_ref(at[:k], bt[:k])
+    torch.cuda.synchronize()
+    ref_ms = time_cuda(lambda: TA.nw_ref(at[:k], bt[:k]), reps=1, rounds=3)
+    check(np.array_equal(ref.cpu().numpy(), want[:k, :k]),
+          f"nw_ref {k}^2 differs from the oracle")
+    tiles = (NW_LEN // NW_TILE) ** 2
+    log(f"[nw] nw_tiled {NW_LEN}x{NW_LEN}, tile {NW_TILE} ({tiles} plain "
+        f"tiles on run_wavefront): {tiled_ms:.1f} ms, score "
+        f"{float(score)}, equal to the double-loop oracle ({oracle_s:.1f} s "
+        f"on the host); nw_ref {k}x{k}: {ref_ms:.3f} ms, equal")
+    out["nw"] = {"n": NW_LEN, "tile": NW_TILE, "tiles": tiles,
+                 "tiled_ms": tiled_ms, "score": float(score),
+                 "ref_n": k, "ref_ms": ref_ms, "oracle_s": oracle_s}
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 6: the LM path, RWKV-6 1.6B at full width
 # --------------------------------------------------------------------------
 
@@ -1333,6 +1488,298 @@ def generate_vs_prefill(params, cfg, dev, seed, rtol) -> dict:
             "max_abs_logit": scale, "rel_err": err / scale, "rtol": rtol}
 
 
+# the scheduler sub-phases: 8 requests on a pool of 4 slots, prompts of
+# 257-2,049 tokens with (L-1) mod 256 <= 31 (full chunks of 256, then a
+# short decode ramp) and 8-24 new tokens; 4 submitted at once, then one
+# every 3 steps
+SCHED_SLOTS, SCHED_MAX_LEN, SCHED_CHUNK, SCHED_REQS = 4, 2304, 256, 8
+SCHED_TIE_RTOL = 1e-3         # a first difference must be a near-tie
+# score() against the engine path at batch 1: the same chunk and decode
+# steps, but the pool decodes 4 rows where the engine path decodes 1, so
+# cuBLAS may pick another GEMM and round otherwise (of max |logit|)
+SCORE_RTOL = 1e-4
+# score(): each prompt alone (its chunks at batch 1), 2 chunks + 7 decode
+# steps and 1 chunk + 23. Held to the same prompt fed by hand through the
+# engine's chunk and decode steps at batch 1 (generate's path), and, for
+# gemma-2b, to one forward's log-softmax, each at generate_vs_prefill's gate.
+# RWKV-6's agreement with one forward is printed, not gated: at this random
+# init its logits depend on the GEMM shapes that produced the first
+# positions (a batch of 4 against 1, or one length against another, moves
+# them, and the WKV state carries the move on), the plain scan as much as
+# the kernel; the run prints two forwards of the same prompt at lengths L
+# and one chunk beside it
+SCORE_LENS = (520, 280)
+SERVICE_LENS, SERVICE_NEW = (265, 520, 270), 8
+# the continuous run's steps under the profiler: past the first admissions,
+# arrivals and their chunks among decode ticks (the trace of a whole run
+# takes a minute to read back)
+SCHED_PROFILE_STEPS = (6, 18)
+
+
+def sched_requests(vocab, seed):
+    """(prompts, max_new_tokens) of the scheduler sub-phases, from seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 60)
+    q = rng.integers(1, 9, SCHED_REQS)
+    r = np.where(q == 8, 0, rng.integers(0, 32, SCHED_REQS))
+    lens = 1 + SCHED_CHUNK * q + r
+    mnts = rng.integers(8, 25, SCHED_REQS)
+    prompts = [rng.integers(0, vocab, ln).astype(np.int32) for ln in lens]
+    return prompts, [int(n) for n in mnts]
+
+
+def drive_scheduler(sched, prompts, mnts, window=None):
+    """4 requests at once, then one every 3 steps, to the end: completions
+    by request index. ``window`` = (first, last) step: those steps run
+    under torch.profiler (CUDA activity), whose (wall us, device spans) go
+    into ``sched.profile_window``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rid2i = {}
+    for i in range(SCHED_SLOTS):
+        rid2i[sched.submit([prompts[i]], max_new_tokens=mnts[i])[0]] = i
+    sub, steps, done = SCHED_SLOTS, 0, []
+    prof = None
+    while sched.pending or sched.live or sub < len(prompts):
+        if window and steps == window[0]:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            t0 = time.perf_counter()
+        done += sched.step()
+        steps += 1
+        if prof is not None and steps == window[1]:
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+            prof.stop()
+            sched.profile_window = (wall, device_spans(prof))
+            prof = None
+        if steps % 3 == 0 and sub < len(prompts):
+            rid2i[sched.submit([prompts[sub]],
+                               max_new_tokens=mnts[sub])[0]] = sub
+            sub += 1
+    done += sched.drain()
+    torch.cuda.synchronize()
+    check(len(done) == len(prompts), f"{len(done)} completions of "
+          f"{len(prompts)}")
+    return {rid2i[c.rid]: c for c in done}
+
+
+def sched_config(**kw):
+    from repro_torch.serve import SchedulerConfig
+    return SchedulerConfig(num_slots=SCHED_SLOTS, max_len=SCHED_MAX_LEN,
+                           prefill_chunk=SCHED_CHUNK, **kw)
+
+
+def scheduler_fp32(params, cfg, dev, seed, rtol, counter,
+                   gate_forward: bool) -> dict:
+    """The fp32 weights through serve.Scheduler at full width: every
+    stream against per-request engine.generate (same chunk policy) on the
+    card, a first difference allowed only at a near-tie of the two tokens'
+    logits (within SCHED_TIE_RTOL of max |logit|, one fp32 prefill of the
+    prompt plus the common prefix: cuBLAS may take another kernel at batch
+    4 than at 1); score() within SCORE_RTOL of max |logit| of the engine
+    path at batch 1 and, with ``gate_forward``, within ``rtol`` (the
+    generate_vs_prefill gate) of one fp32 forward's log-softmax; one
+    KernelService(lm=...) submit of 2 generate and 1 score request equal
+    to a direct run of the same requests on a scheduler of its own."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as TT
+    from repro_torch.runtime import KernelService, Request
+    from repro_torch.serve import Scheduler, engine
+
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    sched = Scheduler(cfg, params, sched_config())
+    counter.launches = 0
+    t0 = time.perf_counter()
+    done = drive_scheduler(sched, prompts, mnts)
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    prefill = engine.make_prefill_step(cfg, 0)
+    exact, ties = 0, []
+    for i, (p, n) in enumerate(zip(prompts, mnts)):
+        want, reason = engine.generate(params, cfg, p, n,
+                                       prefill_chunk=SCHED_CHUNK,
+                                       cache_slots=SCHED_MAX_LEN)
+        got = done[i].tokens
+        check(len(got) == n and done[i].reason == "length",
+              f"request {i}: {len(got)} tokens ({done[i].reason})")
+        if np.array_equal(got, want):
+            exact += 1
+            continue
+        j = int(np.argmax(got != want))
+        ctx = np.concatenate([p, got[:j]])
+        lg, _ = prefill(params, {"tokens": torch.as_tensor(
+            ctx, dtype=torch.int64, device=dev)[None]})
+        lg = lg[0, -1].float()
+        gap = float((lg[int(got[j])] - lg[int(want[j])]).abs())
+        scale = float(lg.abs().max())
+        ties.append({"request": i, "at": j, "tokens": [int(got[j]),
+                     int(want[j])], "logit_gap": gap, "max_abs": scale})
+        check(gap <= SCHED_TIE_RTOL * scale, f"request {i}: scheduler and "
+              f"generate differ at token {j} ({int(got[j])} vs "
+              f"{int(want[j])}) with a logit gap {gap} > "
+              f"{SCHED_TIE_RTOL} * {scale}")
+    log(f"[sched] {cfg.name} fp32, {SCHED_REQS} requests (prompts "
+        f"{[len(p) for p in prompts]}, new {mnts}) on {SCHED_SLOTS} slots: "
+        f"{wall:.2f} s, {sched.counters['decode_steps']} decode ticks, "
+        f"{sched.counters['chunk_steps']} chunk steps, {launches} "
+        f"{counter.__name__.split('.')[-1]} launches; {exact} of "
+        f"{SCHED_REQS} streams equal per-request generate exactly, "
+        f"near-ties at the first difference: {ties}")
+
+    g = torch.Generator(device=dev).manual_seed(seed + 61)
+    chunk = engine.make_chunk_step(cfg)
+    step = engine.make_slot_decode_step(cfg)
+    score = []
+
+    def lsm(lg, x):             # log p(x[i+1] | x[:i+1]) from (S, V) logits
+        return torch.log_softmax(lg[:len(x) - 1].float(), -1).gather(
+            -1, x[1:, None])[:, 0]
+
+    for ln in SCORE_LENS:
+        x = torch.randint(0, cfg.vocab, (ln,), generator=g, device=dev)
+        (rid,) = sched.score([x.cpu().numpy()])
+        sched.drain()
+        got = sched.results.pop(rid)
+        check(got.reason == "score" and got.logprobs.shape == (ln - 1,),
+              f"score() of {ln} tokens returned {got.reason}, "
+              f"{got.logprobs.shape}")
+        got = torch.as_tensor(got.logprobs, device=dev)
+        caches = TT.init_caches(cfg, 1, SCHED_MAX_LEN, per_slot_pos=True,
+                                device=dev)
+        at = lambda p: torch.tensor([p], device=dev)  # noqa: E731
+        lgs, ctx = [], 0
+        while ln - 1 - ctx >= SCHED_CHUNK:
+            lg, caches = chunk(params, caches,
+                               x[None, ctx:ctx + SCHED_CHUNK], at(ctx))
+            lgs.append(lg[0])
+            ctx += SCHED_CHUNK
+        while ctx < ln - 1:
+            _, lg, caches = step(params, caches, x[None, ctx:ctx + 1],
+                                 at(ctx), torch.zeros(1, device=dev), None)
+            lgs.append(lg[0])
+            ctx += 1
+        path = torch.cat(lgs)
+        with torch.inference_mode():
+            fwd = TT.apply_model(params, cfg, tokens=x[None])[0][0]
+            fwd_c = TT.apply_model(params, cfg,
+                                   tokens=x[None, :SCHED_CHUNK])[0][0]
+        e_path = float((got - lsm(path, x)).abs().max())
+        e_fwd = float((got - lsm(fwd, x)).abs().max())
+        two_fwd = float((lsm(fwd_c, x[:SCHED_CHUNK])
+                         - lsm(fwd, x)[:SCHED_CHUNK - 1]).abs().max())
+        s_path, s_fwd = float(path.abs().max()), float(fwd.abs().max())
+        score.append({"len": ln, "vs_engine_path": e_path,
+                      "vs_one_forward": e_fwd,
+                      "two_forwards_first_chunk": two_fwd,
+                      "max_abs_logit": s_fwd})
+        check(e_path <= SCORE_RTOL * s_path, f"score() of {ln} tokens: "
+              f"logprobs differ from the engine path by {e_path} > "
+              f"{SCORE_RTOL} * {s_path}")
+        if gate_forward:
+            check(e_fwd <= rtol * s_fwd, f"score() of {ln} tokens: logprobs "
+                  f"differ from one forward by {e_fwd} > {rtol} * {s_fwd}")
+    log(f"[sched] {cfg.name} fp32 score() against the engine path and one "
+        f"forward's log-softmax: {score} (engine path gated at "
+        f"{SCORE_RTOL} of max |logit|; one forward "
+        f"{f'gated at {rtol}' if gate_forward else 'printed, not gated'})")
+
+    sp = [np.random.default_rng(seed + 62 + i).integers(
+        0, cfg.vocab, ln).astype(np.int32) for i, ln in
+        enumerate(SERVICE_LENS)]
+    direct = Scheduler(cfg, params, sched_config())
+    gen = direct.submit(sp[:2], max_new_tokens=SERVICE_NEW)
+    direct.drain()
+    (srid,) = direct.score(sp[2:])
+    direct.drain()
+    svc = KernelService(lm=Scheduler(cfg, params, sched_config()),
+                        device=dev)
+    res = svc.submit([Request("generate", {"prompt": sp[0],
+                                           "max_new_tokens": SERVICE_NEW}),
+                      Request("generate", {"prompt": sp[1],
+                                           "max_new_tokens": SERVICE_NEW}),
+                      Request("score", {"prompt": sp[2]})])
+    for out, rid in zip(res[:2], gen):
+        want = direct.results[rid]
+        check(np.array_equal(out["tokens"], want.tokens)
+              and out["reason"] == want.reason,
+              "KernelService generate differs from the scheduler's")
+    check(np.array_equal(res[2]["logprobs"], direct.results[srid].logprobs),
+          "KernelService score differs from the scheduler's")
+    log(f"[sched] {cfg.name} KernelService(lm=Scheduler) submit of 2 "
+        f"generate + 1 score request equals the scheduler's direct results")
+    del sched, direct, svc
+    torch.cuda.empty_cache()
+    return {"requests": SCHED_REQS, "prompt_lens": [len(p) for p in prompts],
+            "max_new": mnts, "slots": SCHED_SLOTS, "max_len": SCHED_MAX_LEN,
+            "chunk": SCHED_CHUNK, "wall_s": wall, "launches": launches,
+            "exact_streams": exact, "near_ties": ties, "score": score,
+            "score_rtol": SCORE_RTOL, "score_forward_rtol": rtol,
+            "score_forward_gated": gate_forward,
+            "service_equal": True}
+
+
+def scheduler_bf16(params, cfg, dev, seed, counter) -> dict:
+    """The bf16 serving weights through serve.Scheduler, the same 8
+    requests under admit='continuous' (the launch count at 0 just before
+    and read just after) and admit='static': tokens/s of each (host clock
+    to a synchronize), then the continuous run again under the profiler
+    for the card's busy share. Printed, not gated."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import Scheduler
+
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    out = {}
+    streams = {}
+    for admit in ("continuous", "static"):
+        sched = Scheduler(cfg, params, sched_config(admit=admit,
+                                                    cache_requests=False))
+        torch.cuda.synchronize()
+        counter.launches = 0
+        t0 = time.perf_counter()
+        done = drive_scheduler(sched, prompts, mnts)
+        wall = time.perf_counter() - t0
+        launches = counter.launches
+        st = sched.stats()
+        toks = st["generated_tokens"]
+        streams[admit] = [done[i].tokens for i in range(SCHED_REQS)]
+        out[admit] = {
+            "wall_s": wall, "generated_tokens": toks,
+            "tok_s": toks / wall, "decode_steps": st["decode_steps"],
+            "chunk_steps": st["chunk_steps"],
+            "mean_occupancy": st["mean_occupancy"], "launches": launches,
+            "ttft_ms_p50": st["ttft_ms.p50"], "ttft_ms_p95": st["ttft_ms.p95"],
+            "itl_ms_p50": st["itl_ms.p50"]}
+        log(f"[sched] {cfg.name} bf16 admit={admit}: {toks} tokens in "
+            f"{wall:.3f} s ({toks / wall:.1f} tok/s), "
+            f"{st['decode_steps']} decode ticks, {st['chunk_steps']} chunk "
+            f"steps, mean occupancy {st['mean_occupancy']}, TTFT p50 "
+            f"{st['ttft_ms.p50']:.1f} ms, ITL p50 {st['itl_ms.p50']:.2f} ms; "
+            f"{launches} {counter.__name__.split('.')[-1]} launches")
+        del sched
+    same = sum(np.array_equal(a, b) for a, b in
+               zip(streams["continuous"], streams["static"]))
+    sched = Scheduler(cfg, params, sched_config(cache_requests=False))
+    drive_scheduler(sched, prompts, mnts, window=SCHED_PROFILE_STEPS)
+    wall, spans = sched.profile_window
+    out["busy_share"] = busy_us(spans) / wall if spans else None
+    out["profiled_steps"] = list(SCHED_PROFILE_STEPS)
+    out["profiled_ms_per_step"] = wall / 1e3 / (SCHED_PROFILE_STEPS[1]
+                                                - SCHED_PROFILE_STEPS[0])
+    out["continuous_vs_static_equal_streams"] = same
+    log(f"[sched] {cfg.name} bf16 continuous, steps "
+        f"{SCHED_PROFILE_STEPS[0]}-{SCHED_PROFILE_STEPS[1] - 1} under the "
+        f"profiler: {out['profiled_ms_per_step']:.2f} ms per step, card busy "
+        f"{out['busy_share']}; {same} of {SCHED_REQS} streams equal between "
+        "continuous and static (bf16 rounds otherwise at batch 4 and 1)")
+    del sched
+    torch.cuda.empty_cache()
+    return out
+
+
 def lm_kernel_vs_plain(dev, seed) -> dict:
     """The full-width model in fp32, one prefill of 4 prompts of 2,048
     tokens with the WKV-scan kernel and with its plain version: last
@@ -1402,12 +1849,14 @@ def lm_kernel_vs_plain(dev, seed) -> dict:
     log(f"[lm] greedy first tokens equal: {first_on.tolist()}")
     del runs, lg_on, c_on, lg_off, c_off
     gvp = generate_vs_prefill(params, cfg, dev, seed, GVP_RTOL["rwkv"])
+    sched = scheduler_fp32(params, cfg, dev, seed, GVP_RTOL["rwkv"], KS,
+                           gate_forward=False)
     del params
     torch.cuda.empty_cache()
     return {"logits_max_abs_err": err, "logits_max_abs": scale,
             "cache_max_rel_err": cache_rel, "decay_share_below_clamp": share,
             "prefill_ms_kernel": ms_on, "prefill_ms_plain": ms_off,
-            "generate_vs_prefill": gvp}
+            "generate_vs_prefill": gvp, "scheduler": sched}
 
 
 def profiled(fn):
@@ -1538,6 +1987,15 @@ def lm_serving(dev, seed) -> dict:
         "ssm_scan_device_us_per_prefill": sum(scans) if scans else None,
         "decode_busy_share": busy_us(dspans) / dwall if dspans else None,
         "decode_profiled_ms_per_step": dwall / 1e3 / DECODE_PROFILE_STEPS})
+    sched = scheduler_bf16(params, cfg, dev, seed, KS)
+    for admit in ("continuous", "static"):
+        n_chunks = sched[admit]["chunk_steps"]
+        check(sched[admit]["launches"] == cfg.num_layers * n_chunks > 0,
+              f"ssm_scan launched {sched[admit]['launches']} times in the "
+              f"{admit} scheduler run, expected {cfg.num_layers} per chunk "
+              f"step x {n_chunks}")
+    out["scheduler"] = sched
+    out["launches"]["scheduler"] = sched["continuous"]["launches"]
     log(f"[lm] bf16 prefill {LM_BATCH}x{LM_PROMPT}: first call "
         f"{res['prefill_ms']:.1f} ms, warm {warm_ms:.1f} ms "
         f"({out['prefill_tok_s']:.0f} tok/s); under the profiler "
@@ -1577,7 +2035,7 @@ def ssm_scan_entry(dev, errs, lm) -> dict:
         f"{plain:.3f} ms, wkv_chunked {chunked:.4f} ms, bound {b_ms:.6f} ms "
         f"({b_by}); {ms / t * 1e6:.1f} ns per serial step; share of the "
         f"bound {b_ms / ms:.4f}")
-    launches = lm["launches"]["serve"] + lm["launches"]["generate"]
+    launches = sum(lm["launches"].values())
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan.py:58",
@@ -1683,12 +2141,14 @@ def attn_kernel_vs_plain(dev, seed) -> dict:
     del runs, lg_on, c_on, lg_off, c_off, a, b
     torch.cuda.empty_cache()
     gvp = generate_vs_prefill(params, cfg, dev, seed, GVP_RTOL["attn"])
+    sched = scheduler_fp32(params, cfg, dev, seed, GVP_RTOL["attn"], KF,
+                           gate_forward=True)
     del params
     torch.cuda.empty_cache()
     return {"logits_max_abs_err": err, "logits_max_abs": scale,
             "cache": cache, "launches": {"kernel": n_on, "blockwise": n_off},
             "prefill_ms_kernel": ms_on, "prefill_ms_blockwise": ms_off,
-            "generate_vs_prefill": gvp}
+            "generate_vs_prefill": gvp, "scheduler": sched}
 
 
 def attn_serving(dev, seed) -> dict:
@@ -1817,7 +2277,15 @@ def attn_serving(dev, seed) -> dict:
         f"{DECODE_PROFILE_STEPS} steps under the profiler "
         f"{out['decode_profiled_ms_per_step']:.3f} ms per step, card busy "
         f"{out['decode_busy_share']}")
-    del params, caches, res
+    del caches
+    sched = scheduler_bf16(params, cfg, dev, seed, KF)
+    for admit in ("continuous", "static"):
+        check(sched[admit]["launches"] == 0, f"flash_attention launched "
+              f"{sched[admit]['launches']} times in the {admit} scheduler "
+              "run, expected 0 (chunks and decode attend over the cache)")
+    out["scheduler"] = sched
+    out["launches"]["scheduler"] = sched["continuous"]["launches"]
+    del params, res
     torch.cuda.empty_cache()
     return out
 
@@ -1856,7 +2324,7 @@ def flash_attention_entry(dev, errs, attn) -> dict:
         del q, k, v
     ms, plain, lib, b_ms, b_by, tflops = out["bfloat16"]
     f32 = out["float32"]
-    launches = attn["launches"]["serve"] + attn["launches"]["generate"]
+    launches = sum(attn["launches"].values())
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:83",
@@ -1947,6 +2415,10 @@ def main(argv=None) -> int:
 
     kernels_on_vs_off(mapper, reads[1:], dev)
 
+    t_paper = time.perf_counter()
+    paper = paper_kernels(dev, args.seed)
+    log(f"[paper] phase took {time.perf_counter() - t_paper:.1f} s")
+
     line = kernel_line(dev, launches, errs, max_n, max_align)
     line["kernels"].append(radix_rank_entry(dev, rank_info, errs))
     by_name = {k["name"]: k for k in line["kernels"]}
@@ -1954,6 +2426,7 @@ def main(argv=None) -> int:
         by_name[name]["service_launches"] = svc_info["launches"][name]
     by_name["chain_scan"]["ptxas"] = ptxas["chain_scan"]
     line["service"] = svc_info["per_kernel"]
+    line["paper_kernels"] = paper
     longest = max((r for _, (r, _) in reads[1:]), key=len)
     traces = [device_trace(mapper, reads[1][1][0][:2000]),
               device_trace(mapper, longest)]

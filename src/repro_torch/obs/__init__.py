@@ -1,6 +1,7 @@
 """Observability for the port: copies of the reference's pure-Python
 metrics registry, tracer and tick-driven sampler. The SLO monitors,
-controllers and schemas come with the serving slice."""
+controllers and schemas come with a later serving slice (ROADMAP queue 1,
+item 4)."""
 
 from repro_torch.obs.metrics import (REGISTRY, Counter, Gauge, Histogram,
                                      Registry, get_registry)

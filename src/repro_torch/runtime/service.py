@@ -32,6 +32,10 @@ Every result equals the corresponding direct call into
 batching runs the same per-request arithmetic over a leading axis, and
 sentinel padding is appended *after* the true data, which none of these
 left-to-right recurrences can see.
+
+LM traffic comes through the same door: ``generate`` and ``score``
+requests go to the ``serve.Scheduler`` passed as ``KernelService(lm=...)``,
+which batches them in time on its slot pool.
 """
 
 from __future__ import annotations
@@ -630,8 +634,62 @@ class MapperAdapter(KernelAdapter):
         return scores
 
 
+class GenerateAdapter(KernelAdapter):
+    """payload {prompt[, max_new_tokens, temperature, top_k, top_p]} ->
+    {"tokens", "reason"}: LM decode traffic through the same front door as
+    the dependency-bound kernels.
+
+    Decode is the request-scale 1-D recurrence, so batching happens in time
+    (continuous batching), not in the request list: the adapter forwards
+    the whole bulk to the attached ``serve.Scheduler``, whose slot pool
+    interleaves prefill/decode/retire per step. Attach with
+    ``KernelService(lm=Scheduler(...))``; the scheduler runs on the device
+    of its weights."""
+
+    name = "generate"
+
+    def run(self, payloads: List[Dict]) -> List[Any]:
+        sched = self.svc.lm
+        if sched is None:
+            raise ValueError(
+                "generate kernel needs KernelService(lm=serve.Scheduler)")
+        rids = []
+        for p in payloads:
+            rids.extend(sched.submit(
+                [np.asarray(p["prompt"], np.int32)],
+                max_new_tokens=p.get("max_new_tokens"),
+                temperature=p.get("temperature"),
+                top_k=p.get("top_k"), top_p=p.get("top_p")))
+        sched.drain()
+        # pop: a long-lived service must not accumulate Completions
+        done = [sched.results.pop(r) for r in rids]
+        return [{"tokens": c.tokens, "reason": c.reason} for c in done]
+
+
+class ScoreAdapter(KernelAdapter):
+    """payload {prompt} -> {"logprobs", "reason"}: per-token prompt logprobs
+    (``logprobs[i-1] = log p(prompt[i] | prompt[:i])``) through the
+    scheduler's chunk and decode steps: the same slot pool, cache and
+    admission as 'generate', no sampled tokens. Attach with
+    ``KernelService(lm=Scheduler(...))``."""
+
+    name = "score"
+
+    def run(self, payloads: List[Dict]) -> List[Any]:
+        sched = self.svc.lm
+        if sched is None:
+            raise ValueError(
+                "score kernel needs KernelService(lm=serve.Scheduler)")
+        rids = []
+        for p in payloads:
+            rids.extend(sched.score([np.asarray(p["prompt"], np.int32)]))
+        sched.drain()
+        done = [sched.results.pop(r) for r in rids]
+        return [{"logprobs": c.logprobs, "reason": c.reason} for c in done]
+
+
 _ADAPTERS = (ChainAdapter, SWAdapter, DTWAdapter, SortAdapter, SeedAdapter,
-             ScanAdapter, MapperAdapter)
+             ScanAdapter, MapperAdapter, GenerateAdapter, ScoreAdapter)
 
 
 class KernelService:
@@ -641,6 +699,7 @@ class KernelService:
     def __init__(self, cfg: ServiceConfig = ServiceConfig(),
                  reference: Optional[np.ndarray] = None,
                  dispatcher: Optional[Dispatcher] = None,
+                 lm: Optional[Any] = None,
                  tuner: Optional[Autotuner] = None,
                  device: DeviceLike = None):
         self.cfg = cfg
@@ -648,6 +707,7 @@ class KernelService:
         self.dispatcher = dispatcher or Dispatcher()
         self.reference = (None if reference is None
                           else np.asarray(reference, np.int8))
+        self.lm = lm    # serve.Scheduler for the 'generate'/'score' kernels
         self.tuner = tuner or Autotuner()
         self._index = None
         self._adapters: Dict[str, KernelAdapter] = {
@@ -691,8 +751,13 @@ class KernelService:
         return out
 
     def stats(self) -> Dict[str, Any]:
-        """Registered kernels plus the traffic counters of ``metrics``."""
-        return {"kernels": list(self.kernels), **self.metrics()}
+        """Registered kernels plus the traffic counters of ``metrics`` and,
+        when an LM scheduler is attached, its pool counters (``lm``)."""
+        out: Dict[str, Any] = {"kernels": list(self.kernels),
+                               **self.metrics()}
+        if self.lm is not None:
+            out["lm"] = self.lm.stats()
+        return out
 
     def submit(self, requests: Sequence[Request]) -> List[Any]:
         """Run a heterogeneous batch; results align with ``requests``."""

@@ -12,7 +12,8 @@ plain ``blockwise_attention`` over the cache, so ``generate`` launches no
 ``flash_attention``. Sampling at
 ``temperature > 0`` draws Gumbel noise from a ``torch.Generator`` (the
 reference's Gumbel-max), so only greedy streams equal the reference's.
-The verify, paged and sharded steps come with the scheduler slice.
+The verify, paged and sharded steps come with the paging slice (ROADMAP
+queue 1, item 4).
 """
 
 from __future__ import annotations

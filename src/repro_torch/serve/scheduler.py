@@ -1,0 +1,656 @@
+"""Continuous-batching LM scheduler on the slot pool (port of
+``repro.serve.scheduler``, contiguous slots).
+
+Decode is serving's request-scale 1-D dependency-bound recurrence: each
+step consumes the previous step's cache. A static batch pads every request
+to the slowest member; this scheduler admits, interleaves and retires
+requests per decode step:
+
+  admit    - FCFS queue; a request claims a free cache slot the moment one
+             exists (SlotManager.alloc zeroes the slot rows).
+  prefill  - prompts are consumed as full ``prefill_chunk`` chunks through
+             the chunk step (exact: chunks are never padded); the < chunk
+             remainder rides the decode ramp as teacher-forced tokens. On
+             the card an RWKV chunk runs the ``ssm_scan`` kernel in every
+             layer.
+  decode   - ONE step over the whole pool each tick: per-slot position
+             vector, per-slot sampling policy; free slots compute junk
+             that is never read.
+  retire   - EOS / max-tokens eviction frees the slot at once; the next
+             queued request is admitted on the next tick.
+
+Under greedy sampling the streams are token-identical to per-request
+``engine.generate`` with the same ``prefill_chunk`` (same chunk policy,
+same steps), up to what a batched matmul may round otherwise than a batch
+of one. ``score(prompts)`` teacher-forces prompts through the same chunk
+and decode steps and collects every position's logprob
+(``Completion.logprobs``); the log-softmax runs on the device and only the
+scored tokens' values come to the host. Sampling at a temperature draws
+from a ``torch.Generator`` seeded with ``SchedulerConfig.seed``, so a seed
+gives one stream, which is not the reference's (JAX keys).
+
+A memoizing request cache (prompt + params -> tokens) fronts the pool for
+repeated greedy requests, and identical requests in flight coalesce.
+
+Observability: the scheduler registers as the ``serve`` provider of the
+metrics registry, stamps each request's timeline (queue wait, time to
+first token, inter-token latency) and, when a Tracer is enabled, records
+``admit`` / ``prefill`` / ``decode`` / ``retire`` events per slot track and
+``decode-tick`` / ``prefill-chunk`` spans on the scheduler track.
+
+The paged allocator (``allocator='paged'``, with preemption, swap and
+prefix sharing), speculative decoding (``speculate > 0``) and the sharded
+pool (``mesh_shards``) raise NotImplementedError: they come with later
+slices (ROADMAP queue 1, item 4).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import sampler as obs_sampler
+from repro_torch.obs import trace as obs_trace
+from repro_torch.serve import engine
+from repro_torch.serve.slots import SlotManager, _attn_view_len
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    num_slots: int = 8          # pool width B (the decode batch)
+    max_len: int = 256          # cache slots per request (prompt + gen)
+    prefill_chunk: int = 32     # C: full-chunk prefill quantum
+    max_new_tokens: int = 32    # default generation budget
+    temperature: float = 0.0    # default sampling temperature (0 = greedy)
+    top_k: int = 0              # default top-k filter (0 = disabled)
+    top_p: float = 1.0          # default nucleus mass (1.0 = disabled)
+    # k > 0: speculative decoding (not ported yet; validated as in the
+    # reference, then NotImplementedError)
+    speculate: int = 0
+    eos_token: Optional[int] = None
+    cache_requests: bool = True
+    request_cache_size: int = 1024
+    seed: int = 0
+    # 'continuous': admit whenever a slot is free (per-step interleaving).
+    # 'static': admit a full batch only when the pool is EMPTY (the
+    # pad-to-slowest baseline).
+    admit: str = "continuous"
+    # 'contiguous': every slot reserves max_len cache rows. 'paged' and
+    # the paged-only knobs below are validated as in the reference; paged
+    # raises NotImplementedError (the paging slice brings it and its block
+    # sizes, swap budget and prefix index)
+    allocator: str = "contiguous"
+    preempt: str = "recompute"
+    admission: str = "optimistic"
+    prefix_sharing: bool = False
+    mesh_shards: Optional[int] = None
+    placement: str = "least_blocks"
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Host-side per-slot request state (the validity mask's payload)."""
+    rid: int
+    prompt: np.ndarray          # int32 (L,)
+    max_new_tokens: int
+    policy: engine.SamplingPolicy
+    mode: str = "generate"      # 'generate' | 'score' (prompt logprobs)
+    ctx: int = 0                # tokens consumed into the slot's cache
+    out: List[int] = dataclasses.field(default_factory=list)
+    logprobs: List[float] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Timeline:
+    """Per-request phase stamps (perf_counter), kept while the request is
+    in flight and folded into its Completion at finish."""
+    submit_t: float
+    admit_t: Optional[float] = None     # slot claim (None = cached)
+    first_token_t: Optional[float] = None
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: np.ndarray          # int32 (g,)
+    reason: str                 # 'eos' | 'length' | 'score' | 'cached'
+    prompt_len: int
+    submit_t: float             # time.perf_counter() stamp at submit
+    finish_t: float             # time.perf_counter() stamp at finish
+    admit_t: Optional[float] = None
+    first_token_t: Optional[float] = None
+    # score() requests: log p(prompt[i] | prompt[:i]) for i = 1..L-1,
+    # fp32 (L-1,); None for generate requests
+    logprobs: Optional[np.ndarray] = None
+
+    @property
+    def latency(self) -> float:
+        return self.finish_t - self.submit_t
+
+    @property
+    def queue_wait(self) -> float:
+        """Submit -> admission. 0 for cache-served requests."""
+        return self.admit_t - self.submit_t if self.admit_t is not None \
+            else 0.0
+
+    @property
+    def ttft(self) -> float:
+        """Submit -> first generated token (== latency when the request
+        was served from cache or produced no token before finish)."""
+        return self.first_token_t - self.submit_t \
+            if self.first_token_t is not None else self.latency
+
+    @property
+    def prefill_s(self) -> float:
+        """Admission -> first token: prompt consumption time."""
+        if self.admit_t is None or self.first_token_t is None:
+            return 0.0
+        return self.first_token_t - self.admit_t
+
+    @property
+    def decode_s(self) -> float:
+        """First token -> finish: pure generation time."""
+        return self.finish_t - self.first_token_t \
+            if self.first_token_t is not None else 0.0
+
+    @property
+    def itl(self) -> float:
+        """Mean inter-token latency over the decode phase."""
+        return self.decode_s / max(len(self.tokens) - 1, 1)
+
+
+class RequestCache:
+    """LRU memo: (prompt, params) -> completed tokens (greedy only).
+
+    Sampled (temperature > 0) requests bypass the cache: they are not
+    deterministic functions of the key. The request mode (score vs
+    generate) and the sampling-policy fingerprint are part of the key, so
+    a ``score()`` and a ``generate()`` of one prompt never alias.
+    """
+
+    def __init__(self, maxsize: int = 1024):
+        self.maxsize = maxsize
+        self._d: "collections.OrderedDict[Tuple, Tuple[np.ndarray, str, Optional[np.ndarray]]]" \
+            = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def key(prompt: np.ndarray, max_new_tokens: int,
+            eos_token: Optional[int], mode: str = "generate",
+            policy: Tuple = ()) -> Tuple:
+        # dtype and shape are part of the key: raw bytes alone collide for
+        # int64([1]) vs int32([1, 0]) or a (4,) vs (2, 2) view of a buffer
+        p = np.ascontiguousarray(prompt)
+        return (p.tobytes(), p.dtype.str, p.shape,
+                max_new_tokens, eos_token, mode, tuple(policy))
+
+    def get(self, key: Tuple) \
+            -> Optional[Tuple[np.ndarray, str, Optional[np.ndarray]]]:
+        got = self._d.get(key)
+        if got is None:
+            self.misses += 1
+            return None
+        self._d.move_to_end(key)
+        self.hits += 1
+        return got
+
+    def put(self, key: Tuple, tokens: np.ndarray, reason: str,
+            logprobs: Optional[np.ndarray] = None):
+        # a frozen copy: the requester's Completion may hold the array it
+        # was handed, and writing to it must not rewrite later hits
+        tokens = np.asarray(tokens, np.int32).copy()
+        tokens.setflags(write=False)
+        if logprobs is not None:
+            logprobs = np.asarray(logprobs, np.float32).copy()
+            logprobs.setflags(write=False)
+        self._d[key] = (tokens, reason, logprobs)
+        self._d.move_to_end(key)
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
+
+
+#: scheduler-owned counters, pre-declared at zero so stats() keys are
+#: stable from construction
+_COUNTER_KEYS = (
+    "submitted", "admitted", "completed", "steps", "decode_steps",
+    "chunk_steps", "generated_tokens", "prefill_tokens",
+    "live_decode_slots",
+)
+
+_LATER = "ROADMAP queue 1, item 4"
+
+
+def _token_logprobs(logits: Tensor, targets: np.ndarray) -> np.ndarray:
+    """log-softmax over the last axis of ``logits`` (..., V) in fp32, read
+    at ``targets`` (...) on the device; only those values reach the host."""
+    idx = torch.as_tensor(np.asarray(targets, np.int64)).to(logits.device)
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return lp.gather(-1, idx[..., None])[..., 0].cpu().numpy()
+
+
+class Scheduler:
+    """submit(prompts) / step() / drain() continuous-batching engine. The
+    pool lives on the device of ``params``."""
+
+    def __init__(self, cfg: ModelConfig, params,
+                 sched: SchedulerConfig = SchedulerConfig(),
+                 tracer: Optional[obs_trace.Tracer] = None, mesh=None):
+        self.cfg = cfg
+        self.params = params
+        self.sched = sched
+        for field, allowed in (("allocator", ("contiguous", "paged")),
+                               ("preempt", ("recompute", "swap")),
+                               ("admission", ("optimistic", "reserved")),
+                               ("admit", ("continuous", "static"))):
+            if getattr(sched, field) not in allowed:
+                raise ValueError(f"SchedulerConfig.{field}="
+                                 f"{getattr(sched, field)!r} not in {allowed}")
+        if sched.prefix_sharing and sched.allocator != "paged":
+            raise ValueError("prefix_sharing requires allocator='paged' "
+                             "(blocks are the sharing granule)")
+        if sched.placement not in ("least_blocks", "round_robin"):
+            raise ValueError(f"SchedulerConfig.placement="
+                             f"{sched.placement!r} not in "
+                             "('least_blocks', 'round_robin')")
+        if sched.mesh_shards is not None and sched.allocator != "paged":
+            raise ValueError("mesh_shards requires allocator='paged' "
+                             "(shards own per-shard block pools)")
+        if mesh is not None and sched.mesh_shards is None:
+            raise ValueError("Scheduler(mesh=...) needs "
+                             "SchedulerConfig.mesh_shards set")
+        if sched.speculate < 0:
+            raise ValueError(f"speculate must be >= 0: {sched.speculate}")
+        if sched.speculate:
+            bad = [(s.mixer, s.mlp) for s in cfg.pattern
+                   if s.mixer != "attn" or s.mlp == "rwkv_ffn"]
+            if bad:
+                raise ValueError(
+                    "speculate requires an attention-only pattern with "
+                    f"stateless MLPs (got {bad}): SSM/rwkv_ffn chunk "
+                    "scans cannot roll back rejected drafts")
+            min_view = min(_attn_view_len(s, sched.max_len)
+                           for s in cfg.pattern)
+            if sched.speculate + 1 > min_view:
+                raise ValueError(
+                    f"speculate={sched.speculate}: verify span "
+                    f"{sched.speculate + 1} exceeds the smallest "
+                    f"attention view length {min_view} (the rollback "
+                    "scatter needs distinct ring rows)")
+        for what, on in (("allocator='paged'", sched.allocator == "paged"),
+                         ("speculate > 0", sched.speculate > 0)):
+            if on:
+                raise NotImplementedError(
+                    f"SchedulerConfig {what} is not ported yet: it comes "
+                    f"with a later slice ({_LATER})")
+        # validates temperature/top_k/top_p ranges (ValueError on bad)
+        engine.SamplingPolicy(sched.temperature, sched.top_k, sched.top_p)
+        self.device = params.final_norm["scale"].device
+        self.slots = SlotManager(cfg, sched.num_slots, sched.max_len,
+                                 device=self.device)
+        self._queue: "collections.deque[_Slot]" = collections.deque()
+        self._by_slot: Dict[int, _Slot] = {}
+        self._inflight: Dict[Tuple, List[int]] = {}
+        self._fresh: List[int] = []     # finished, not yet handed out
+        self._tl: Dict[int, _Timeline] = {}
+        self.results: Dict[int, Completion] = {}
+        self.request_cache = RequestCache(sched.request_cache_size)
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            sched.seed)
+        self._next_rid = 0
+        self.counters = collections.Counter(dict.fromkeys(_COUNTER_KEYS, 0))
+        # per-request latency histograms (lifetime count/sum, windowed
+        # p50/p95), fresh per scheduler
+        self._lat = {name: obs_metrics.Histogram()
+                     for name in ("queue_wait_ms", "ttft_ms", "itl_ms")}
+        self._tracer = tracer
+        # slot -> (phase name, t0, rid): the open per-slot phase span,
+        # closed at first token / retire (tracer enabled only)
+        self._open_phase: Dict[int, Tuple[str, float, int]] = {}
+        obs_metrics.REGISTRY.register_provider("serve", self)
+
+    @property
+    def tracer(self) -> obs_trace.Tracer:
+        return self._tracer if self._tracer is not None \
+            else obs_trace.get_tracer()
+
+    def _phase_begin(self, slot: int, name: str, rid: int):
+        if self.tracer.enabled:
+            self._open_phase[slot] = (name, time.perf_counter(), rid)
+
+    def _phase_end(self, slot: int):
+        open_ = self._open_phase.pop(slot, None)
+        if open_ is not None:
+            name, t0, rid = open_
+            self.tracer.complete(name, f"slot{slot}", t0,
+                                 time.perf_counter(), rid=rid)
+
+    # -- submission ----------------------------------------------------------
+
+    def submit(self, prompts: Sequence, max_new_tokens: Optional[int] = None,
+               temperature: Optional[float] = None,
+               top_k: Optional[int] = None,
+               top_p: Optional[float] = None) -> List[int]:
+        """Enqueue prompts (FCFS); returns request ids. Cached greedy
+        repeats complete at once without touching the pool.
+        temperature/top_k/top_p default to the SchedulerConfig values and
+        form the batch's SamplingPolicy (validated here, ValueError). The
+        whole batch is validated before any prompt is enqueued."""
+        mnt = self.sched.max_new_tokens if max_new_tokens is None \
+            else max_new_tokens
+        policy = engine.SamplingPolicy(
+            self.sched.temperature if temperature is None else temperature,
+            self.sched.top_k if top_k is None else top_k,
+            self.sched.top_p if top_p is None else top_p)
+        if mnt < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        batch = []
+        for p in prompts:
+            p = np.asarray(p, np.int32).reshape(-1)
+            if not 1 <= len(p) <= self.sched.max_len - mnt:
+                raise ValueError(
+                    f"prompt length {len(p)} + max_new {mnt} exceeds "
+                    f"max_len {self.sched.max_len}")
+            batch.append(p)
+        return [self._accept(p, mnt, policy, "generate") for p in batch]
+
+    def score(self, prompts: Sequence) -> List[int]:
+        """Enqueue prompts for per-token logprob scoring; returns request
+        ids. Each completion carries ``logprobs``, fp32 (L-1,) with
+        ``logprobs[i-1] = log p(prompt[i] | prompt[:i])``, and no generated
+        tokens (reason 'score'). Scoring rides the chunk and decode steps
+        of prefill, teacher-forcing the prompt; results memoize under a
+        score-mode key."""
+        batch = []
+        for p in prompts:
+            p = np.asarray(p, np.int32).reshape(-1)
+            if not 2 <= len(p) <= self.sched.max_len:
+                raise ValueError(
+                    f"score prompt length {len(p)} must be in "
+                    f"[2, max_len={self.sched.max_len}]")
+            batch.append(p)
+        policy = engine.SamplingPolicy()        # scoring is greedy-only
+        return [self._accept(p, 0, policy, "score") for p in batch]
+
+    def _accept(self, p: np.ndarray, mnt: int,
+                policy: engine.SamplingPolicy, mode: str) -> int:
+        """Give a validated prompt its rid, then serve it from the memo,
+        coalesce it with an identical request in flight, or enqueue it."""
+        rid = self._next_rid
+        self._next_rid += 1
+        self._tl[rid] = _Timeline(submit_t=time.perf_counter())
+        self.counters["submitted"] += 1
+        self.tracer.instant("submit", "scheduler", rid=rid, mode=mode)
+        if self.sched.cache_requests and policy.greedy:
+            key = RequestCache.key(p, mnt, self.sched.eos_token, mode=mode,
+                                   policy=policy.fingerprint())
+            if key in self._inflight:
+                # an identical request is queued or decoding: ride its
+                # completion (a burst of one hot prompt decodes once)
+                self._inflight[key].append(rid)
+                self.request_cache.hits += 1
+                return rid
+            got = self.request_cache.get(key)
+            if got is not None:
+                toks, _, lps = got
+                self._finish(rid, len(p), toks.copy(), "cached",
+                             logprobs=None if lps is None else lps.copy())
+                return rid
+            self._inflight[key] = []
+        self._queue.append(_Slot(rid=rid, prompt=p, max_new_tokens=mnt,
+                                 policy=policy, mode=mode))
+        return rid
+
+    # -- the scheduling loop -------------------------------------------------
+
+    def step(self) -> List[Completion]:
+        """One tick: admit, chunk-prefill, one decode, retire. Returns every
+        completion not yet handed out, including requests finished at
+        submit time by the request cache."""
+        self._admit()
+        self._prefill_chunks()
+        self._decode_once()
+        self.counters["steps"] += 1
+        out = [self.results[rid] for rid in self._fresh]
+        self._fresh.clear()
+        obs_sampler.tick("serve.step")
+        return out
+
+    def drain(self) -> List[Completion]:
+        """Run until queue and pool are empty; returns the completions not
+        yet handed out (by an earlier step() or drain()), in rid order.
+        ``results`` archives every completion until the caller pops it."""
+        fresh: List[int] = []
+        while self._queue or self._by_slot:
+            fresh.extend(c.rid for c in self.step())
+        fresh.extend(self._fresh)   # cache hits finished at submit time
+        self._fresh.clear()
+        return [self.results[rid] for rid in sorted(fresh)]
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    @property
+    def live(self) -> int:
+        return len(self._by_slot)
+
+    def metrics(self) -> dict:
+        """Registry 'serve' provider: every counter, queue/pool levels,
+        cache rates and the latency histograms (``<name>.<field>``).
+        ``stats()`` = this + the slot pool's keys."""
+        decode_steps = self.counters["decode_steps"]
+        head_wait = (time.perf_counter() - self._tl[self._queue[0].rid]
+                     .submit_t) if self._queue else 0.0
+        out = {**{k: int(v) for k, v in self.counters.items()},
+               "pending": self.pending,
+               "live": len(self._by_slot),
+               "coalesced_waiting": sum(
+                   len(v) for v in self._inflight.values()),
+               "cache_hits": self.request_cache.hits,
+               "cache_misses": self.request_cache.misses,
+               "cache_hit_rate": round(self.request_cache.hit_rate, 4),
+               "mean_occupancy": round(
+                   self.counters["live_decode_slots"] / decode_steps, 4)
+               if decode_steps else 0.0,
+               "queue_head_wait_s": round(head_wait, 6)}
+        for name, h in self._lat.items():
+            for k, v in h.summary().items():
+                out[f"{name}.{k}"] = v
+        return out
+
+    def stats(self) -> dict:
+        return {**self.metrics(), **self.slots.stats()}
+
+    # -- internals -----------------------------------------------------------
+
+    def _admit(self):
+        if self.sched.admit == "static" and self._by_slot:
+            return      # static batching: wait for the whole batch
+        while self._queue and self._head_admissible():
+            self._admit_head()
+
+    def _head_admissible(self) -> bool:
+        """Could the queue head admit right now? (A free slot.)"""
+        return self.slots.can_admit()
+
+    def _admit_head(self):
+        """Admit the queue head onto a free slot."""
+        st = self._queue.popleft()
+        slot = self.slots.alloc(st.rid)
+        self._by_slot[slot] = st
+        self.counters["admitted"] += 1
+        tl = self._tl[st.rid]
+        tl.admit_t = time.perf_counter()
+        self._lat["queue_wait_ms"].observe((tl.admit_t - tl.submit_t) * 1e3)
+        self.tracer.instant("admit", f"slot{slot}", rid=st.rid,
+                            prompt_len=len(st.prompt))
+        self._phase_begin(slot, "prefill", st.rid)
+
+    def _prefill_chunks(self):
+        """Consume every pending full chunk (first L-1 prompt tokens only;
+        the final token always rides the decode step, so decode is the one
+        sampler). Each round runs one chunk over exactly the slots that
+        need one."""
+        ch = self.sched.prefill_chunk
+        while True:
+            need = [s for s, st in sorted(self._by_slot.items())
+                    if len(st.prompt) - 1 - st.ctx >= ch]
+            if not need:
+                return
+            sts = [self._by_slot[s] for s in need]
+            toks = np.stack([st.prompt[st.ctx:st.ctx + ch] for st in sts])
+            pos = np.asarray([st.ctx for st in sts], np.int64)
+            with self.tracer.span("prefill-chunk", "scheduler",
+                                  slots=len(need), chunk=ch):
+                logits = self.slots.run_chunk(
+                    self.params, need, self._tensor(toks, torch.int64),
+                    self._tensor(pos, torch.int64))
+            score_rows = [j for j, st in enumerate(sts)
+                          if st.mode == "score"]
+            if score_rows:
+                # logits[j, i] predicts position ctx+i+1, a prompt position
+                # (the chunk condition keeps ctx+ch <= L-1)
+                fed = np.stack([sts[j].prompt[sts[j].ctx + 1:
+                                              sts[j].ctx + ch + 1]
+                                for j in score_rows])
+                lp = _token_logprobs(logits[score_rows], fed)
+                for row, j in enumerate(score_rows):
+                    sts[j].logprobs.extend(float(x) for x in lp[row])
+            for st in sts:
+                st.ctx += ch
+            self.counters["chunk_steps"] += 1
+            self.counters["prefill_tokens"] += len(need) * ch
+            # a score row whose last needed position (L-2) was just
+            # consumed is complete without ever decoding
+            for s, st in zip(need, sts):
+                if st.mode == "score" and st.ctx >= len(st.prompt) - 1:
+                    self._retire(s, "score")
+
+    def _tensor(self, x: np.ndarray, dtype) -> Tensor:
+        return torch.as_tensor(x).to(device=self.device, dtype=dtype)
+
+    def _first_token(self, slot: int, st: _Slot):
+        """First generated token: TTFT stamp and the prefill -> decode phase
+        flip."""
+        tl = self._tl[st.rid]
+        if tl.first_token_t is None:
+            tl.first_token_t = time.perf_counter()
+            self._lat["ttft_ms"].observe(
+                (tl.first_token_t - tl.submit_t) * 1e3)
+        self._phase_end(slot)
+        self._phase_begin(slot, "decode", st.rid)
+
+    def _decode_once(self):
+        """One decode over the FULL pool: per-slot tokens, positions and
+        sampling policies. Free slots feed token 0 at position 0, a row in
+        bounds of every cache leaf (ring writes go to pos % slots), and
+        their results are never read."""
+        if not self._by_slot:
+            return
+        b = self.slots.num_slots
+        toks = np.zeros((b, 1), np.int64)
+        pos = np.zeros((b,), np.int64)
+        temps = np.zeros((b,), np.float32)
+        top_ks = np.zeros((b,), np.int64)
+        top_ps = np.ones((b,), np.float32)
+        for s, st in self._by_slot.items():
+            toks[s, 0] = (st.prompt[st.ctx] if st.ctx < len(st.prompt)
+                          else st.out[-1])
+            pos[s] = st.ctx
+            temps[s] = st.policy.temperature
+            top_ks[s] = st.policy.top_k
+            top_ps[s] = st.policy.top_p
+        sampled = bool((temps > 0).any())
+        with self.tracer.span("decode-tick", "scheduler",
+                              live=len(self._by_slot)):
+            nxt, logits = self.slots.run_decode(
+                self.params, self._tensor(toks, torch.int64),
+                self._tensor(pos, torch.int64),
+                self._tensor(temps, torch.float32),
+                self._gen if sampled else None,
+                self._tensor(top_ks, torch.int64) if sampled else None,
+                self._tensor(top_ps, torch.float32) if sampled else None)
+            nxt = nxt.cpu().numpy()
+        self.counters["decode_steps"] += 1
+        # mean live slots per decode tick = live_decode_slots / decode_steps
+        self.counters["live_decode_slots"] += len(self._by_slot)
+        score_live = sorted(s for s, st in self._by_slot.items()
+                            if st.mode == "score")
+        lp = {}
+        if score_live:
+            # the token fed at ctx predicts position ctx+1, a prompt
+            # position (score rows retire before ctx reaches L-1)
+            fed = [self._by_slot[s].prompt[self._by_slot[s].ctx + 1]
+                   for s in score_live]
+            lp = dict(zip(score_live, _token_logprobs(
+                logits[score_live, 0], np.asarray(fed))))
+
+        for s in sorted(self._by_slot):
+            st = self._by_slot[s]
+            if st.mode == "score":
+                st.logprobs.append(float(lp[s]))
+                st.ctx += 1
+                if st.ctx >= len(st.prompt) - 1:
+                    self._retire(s, "score")
+                continue
+            st.ctx += 1
+            if st.ctx < len(st.prompt):
+                continue                            # still teacher-forcing
+            tok = int(nxt[s])
+            st.out.append(tok)
+            self.counters["generated_tokens"] += 1
+            if len(st.out) == 1:
+                self._first_token(s, st)
+            eos = (self.sched.eos_token is not None
+                   and tok == self.sched.eos_token)
+            if eos or len(st.out) >= st.max_new_tokens:
+                self._retire(s, "eos" if eos else "length")
+
+    def _retire(self, slot: int, reason: str):
+        st = self._by_slot.pop(slot)
+        self._phase_end(slot)
+        self.tracer.instant("retire", f"slot{slot}", rid=st.rid,
+                            reason=reason)
+        self.slots.release(slot)
+        toks = np.asarray(st.out, np.int32)
+        lps = (np.asarray(st.logprobs, np.float32)
+               if st.mode == "score" else None)
+        if self.sched.cache_requests and st.policy.greedy:
+            key = RequestCache.key(st.prompt, st.max_new_tokens,
+                                   self.sched.eos_token, mode=st.mode,
+                                   policy=st.policy.fingerprint())
+            self.request_cache.put(key, toks, reason, lps)
+            for rid in self._inflight.pop(key, ()):     # coalesced waiters
+                self._finish(rid, len(st.prompt), toks.copy(), "cached",
+                             logprobs=None if lps is None else lps.copy())
+        self._finish(st.rid, len(st.prompt), toks, reason, logprobs=lps)
+
+    def _finish(self, rid: int, prompt_len: int, tokens: np.ndarray,
+                reason: str, logprobs: Optional[np.ndarray] = None):
+        self.counters["completed"] += 1
+        self._fresh.append(rid)
+        tl = self._tl.pop(rid)
+        comp = Completion(
+            rid=rid, tokens=tokens, reason=reason, prompt_len=prompt_len,
+            submit_t=tl.submit_t, finish_t=time.perf_counter(),
+            admit_t=tl.admit_t, first_token_t=tl.first_token_t,
+            logprobs=logprobs)
+        self.results[rid] = comp
+        # ITL only means something for pool-served requests
+        if tl.admit_t is not None and tl.first_token_t is not None:
+            self._lat["itl_ms"].observe(comp.itl * 1e3)

@@ -231,7 +231,8 @@ def test_metrics_and_bucket_dispatch(world):
     snap = obs_metrics.REGISTRY.snapshot()
     assert snap["runtime.service.requests.chain"] >= 4
     assert world["svc"].stats()["kernels"] == sorted(
-        ["chain", "dtw", "map", "scan1d", "seed", "sort", "sw"])
+        ["chain", "dtw", "generate", "map", "scan1d", "score", "seed",
+         "sort", "sw"])
 
 
 def test_mixed_submit_preserves_order(world):
@@ -254,8 +255,15 @@ def test_mixed_submit_preserves_order(world):
 
 @pytest.mark.parametrize("kernel", ["nope", "generate", "score"])
 def test_unknown_kernels_raise(world, kernel):
-    with pytest.raises(KeyError):
-        world["svc"].submit([Request(kernel, {})])
+    """An unknown kernel is a KeyError; generate and score are known, and
+    without an LM scheduler attached they raise ValueError, as in the
+    reference."""
+    if kernel == "nope":
+        with pytest.raises(KeyError):
+            world["svc"].submit([Request(kernel, {})])
+    else:
+        with pytest.raises(ValueError, match="needs KernelService"):
+            world["svc"].submit([Request(kernel, {"prompt": [1, 2]})])
 
 
 def test_empty_submit(world):
