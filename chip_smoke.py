@@ -20,7 +20,13 @@ every greedy stream against per-request ``generate``, ``score()``, and
 ``KernelService(lm=...)``'s generate/score requests), and bf16 serving
 through ``launch.serve`` (batch 4, 2,048-token prompts, 32 greedy tokens),
 ``engine.generate`` (chunked prefill of two ragged prompts) and the
-scheduler (continuous and static admission).
+scheduler (continuous and static admission). Then the paged KV pool
+(``SchedulerConfig(allocator="paged")``): for gemma-2b five fp32 arms
+against the contiguous run (equal memory; a tight pool under recompute,
+swap and reserved admission; prefix sharing) and bf16 occupancy against
+the contiguous pool at equal memory; for RWKV-6 a paged run with no
+page-table group; and gemma3-12b at full width, cut to 12 layers, whose
+sliding-window rings page through a ring group.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -28,7 +34,7 @@ Exits non-zero, printing no result, without a CUDA card or without the
 repository's ``src/`` beside it. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is a JSON object with
 one entry per kernel, the SpMV and NW numbers (``paper_kernels``) and the
-LM paths' serving numbers (``lm``, ``attn_lm``).
+LM paths' serving numbers (``lm``, ``attn_lm``, ``ring_lm``).
 """
 
 from __future__ import annotations
@@ -1567,8 +1573,43 @@ def drive_scheduler(sched, prompts, mnts, window=None):
 
 def sched_config(**kw):
     from repro_torch.serve import SchedulerConfig
-    return SchedulerConfig(num_slots=SCHED_SLOTS, max_len=SCHED_MAX_LEN,
-                           prefill_chunk=SCHED_CHUNK, **kw)
+    return SchedulerConfig(**{"num_slots": SCHED_SLOTS,
+                              "max_len": SCHED_MAX_LEN,
+                              "prefill_chunk": SCHED_CHUNK, **kw})
+
+
+def stream_gate(params, cfg, dev, prompts, mnts, done, want, what):
+    """Each completion in ``done`` (by request index) against the stream
+    ``want[i]``: all ``mnts[i]`` tokens (reason 'length'), equal, or first
+    different at a near-tie of the two tokens' logits (within
+    SCHED_TIE_RTOL of max |logit|, one fp32 prefill of the prompt plus the
+    common prefix: cuBLAS may take another kernel at another batch width).
+    Returns (streams equal exactly, near-ties)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import engine
+    prefill = engine.make_prefill_step(cfg, 0)
+    exact, ties = 0, []
+    for i, (p, n) in enumerate(zip(prompts, mnts)):
+        got = done[i].tokens
+        check(len(got) == n and done[i].reason == "length",
+              f"{what}, request {i}: {len(got)} tokens ({done[i].reason})")
+        if np.array_equal(got, want[i]):
+            exact += 1
+            continue
+        j = int(np.argmax(got != want[i]))
+        ctx = np.concatenate([p, got[:j]])
+        lg, _ = prefill(params, {"tokens": torch.as_tensor(
+            ctx, dtype=torch.int64, device=dev)[None]})
+        lg = lg[0, -1].float()
+        gap = float((lg[int(got[j])] - lg[int(want[i][j])]).abs())
+        scale = float(lg.abs().max())
+        ties.append({"request": i, "at": j, "tokens": [int(got[j]),
+                     int(want[i][j])], "logit_gap": gap, "max_abs": scale})
+        check(gap <= SCHED_TIE_RTOL * scale, f"{what}, request {i}: differs "
+              f"at token {j} ({int(got[j])} vs {int(want[i][j])}) with a "
+              f"logit gap {gap} > {SCHED_TIE_RTOL} * {scale}")
+    return exact, ties
 
 
 def scheduler_fp32(params, cfg, dev, seed, rtol, counter,
@@ -1596,31 +1637,11 @@ def scheduler_fp32(params, cfg, dev, seed, rtol, counter,
     done = drive_scheduler(sched, prompts, mnts)
     wall = time.perf_counter() - t0
     launches = counter.launches
-    prefill = engine.make_prefill_step(cfg, 0)
-    exact, ties = 0, []
-    for i, (p, n) in enumerate(zip(prompts, mnts)):
-        want, reason = engine.generate(params, cfg, p, n,
-                                       prefill_chunk=SCHED_CHUNK,
-                                       cache_slots=SCHED_MAX_LEN)
-        got = done[i].tokens
-        check(len(got) == n and done[i].reason == "length",
-              f"request {i}: {len(got)} tokens ({done[i].reason})")
-        if np.array_equal(got, want):
-            exact += 1
-            continue
-        j = int(np.argmax(got != want))
-        ctx = np.concatenate([p, got[:j]])
-        lg, _ = prefill(params, {"tokens": torch.as_tensor(
-            ctx, dtype=torch.int64, device=dev)[None]})
-        lg = lg[0, -1].float()
-        gap = float((lg[int(got[j])] - lg[int(want[j])]).abs())
-        scale = float(lg.abs().max())
-        ties.append({"request": i, "at": j, "tokens": [int(got[j]),
-                     int(want[j])], "logit_gap": gap, "max_abs": scale})
-        check(gap <= SCHED_TIE_RTOL * scale, f"request {i}: scheduler and "
-              f"generate differ at token {j} ({int(got[j])} vs "
-              f"{int(want[j])}) with a logit gap {gap} > "
-              f"{SCHED_TIE_RTOL} * {scale}")
+    want = [engine.generate(params, cfg, p, n, prefill_chunk=SCHED_CHUNK,
+                            cache_slots=SCHED_MAX_LEN)[0]
+            for p, n in zip(prompts, mnts)]
+    exact, ties = stream_gate(params, cfg, dev, prompts, mnts, done, want,
+                              "scheduler against generate")
     log(f"[sched] {cfg.name} fp32, {SCHED_REQS} requests (prompts "
         f"{[len(p) for p in prompts]}, new {mnts}) on {SCHED_SLOTS} slots: "
         f"{wall:.2f} s, {sched.counters['decode_steps']} decode ticks, "
@@ -1716,6 +1737,7 @@ def scheduler_fp32(params, cfg, dev, seed, rtol, counter,
             "max_new": mnts, "slots": SCHED_SLOTS, "max_len": SCHED_MAX_LEN,
             "chunk": SCHED_CHUNK, "wall_s": wall, "launches": launches,
             "exact_streams": exact, "near_ties": ties, "score": score,
+            "streams": [done[i].tokens.tolist() for i in range(SCHED_REQS)],
             "score_rtol": SCORE_RTOL, "score_forward_rtol": rtol,
             "score_forward_gated": gate_forward,
             "service_equal": True}
@@ -1778,6 +1800,355 @@ def scheduler_bf16(params, cfg, dev, seed, counter) -> dict:
     del sched
     torch.cuda.empty_cache()
     return out
+
+
+# the paged sub-phases: allocator="paged" with blocks of 16 positions.
+# fp32 parity on the scheduler trace above, in arms: equal memory (576
+# blocks); a tight pool that the first three prompts fill exactly (their
+# 150 blocks for seed 0), under recompute, swap and reserved admission (at
+# half the blocks, 288, no decode-time growth on this trace ever finds the
+# pool full, since head-of-line blocking leaves the slack; in the tight
+# pool the first block crossing preempts); and prefix sharing on 8
+# requests whose prompts share one PREFIX_LEN-token prefix. Each arm's
+# streams against the contiguous run's, under stream_gate.
+PAGED_BLOCK = 16
+PREFIX_LEN = 1024
+# bf16 occupancy at equal memory, the reference's bench_paged_occupancy
+# traffic at the card's scale: contiguous 4 slots x 2,304 = 9,216 global KV
+# positions against paged 16 slots over 9,216 / 16 - 1 = 575 blocks (the
+# trash block fills the last 16 positions); 24 requests at once, prompts
+# 1 + 256 q + r (q in 1..7, r in 0..31), outputs min(2 + int(pareto(1.1) *
+# 4), 80). Gate: useful occupancy ratio >= 1.5 (the reference's gate;
+# bookkeeping, so the same in every run)
+OCC_REQS, OCC_SLOTS, OCC_MAX_NEW, OCC_GATE = 24, 16, 80, 1.5
+# gemma3-12b at full width (d_model 3,840, head_dim 256, window 1,024), cut
+# to two pattern periods (12 layers) so that its fp32 weights fit beside
+# the run and the smoke stays within its time
+RING_ARCH, RING_LAYERS = "gemma3-12b", 12
+# score() through the paged scheduler against the contiguous one: every
+# position's logprob, where a stream only shows the argmax (at this random
+# init gemma-2b's fp32 streams repeat one token). The same values through
+# the same steps, so they should agree exactly; gated at 1e-5 absolute.
+# gemma3-12b scores a 1,300-token prompt, past its 1,024-token window, so
+# the paged rings wrap
+PAGED_SCORE_ATOL = 1e-5
+RING_SCORE_LENS = (1300, 520)
+
+
+def prefix_requests(vocab, seed):
+    """(prompts, max_new_tokens) sharing one PREFIX_LEN-token prefix: the
+    scheduler trace's lengths (1 + 256 q + r) with q >= 4, from seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 80)
+    prefix = rng.integers(0, vocab, PREFIX_LEN).astype(np.int32)
+    q = rng.integers(4, 9, SCHED_REQS)
+    r = np.where(q == 8, 0, rng.integers(0, 32, SCHED_REQS))
+    lens = 1 + SCHED_CHUNK * q + r
+    mnts = rng.integers(8, 25, SCHED_REQS)
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, vocab, ln - PREFIX_LEN).astype(np.int32)]) for ln in lens]
+    return prompts, [int(n) for n in mnts]
+
+
+def occupancy_requests(vocab, seed):
+    """(prompts, max_new_tokens) of the bf16 occupancy sub-phase."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 70)
+    q = rng.integers(1, 8, OCC_REQS)
+    r = rng.integers(0, 32, OCC_REQS)
+    lens = 1 + SCHED_CHUNK * q + r
+    mnts = np.minimum(2 + (rng.pareto(1.1, OCC_REQS) * 4).astype(int),
+                      OCC_MAX_NEW)
+    prompts = [rng.integers(0, vocab, ln).astype(np.int32) for ln in lens]
+    return prompts, [int(n) for n in mnts]
+
+
+def paged_stats(st) -> dict:
+    """The paging keys of a scheduler's stats() worth printing."""
+    keys = ("preempted", "recomputed_decode_steps", "swapped_out",
+            "swapped_in", "prefix_shared_tokens", "decode_steps",
+            "chunk_steps", "mean_occupancy", "page_groups", "blocks_total",
+            "blocks_used", "shared_blocks", "cow_copies",
+            "prefix_shared_chunks", "prefix_hit_chunks", "prefix_published",
+            "swap_bytes_out", "swap_bytes_in", "swap_rejected",
+            "position_capacity", "total_rows")
+    return {k: st[k] for k in keys + tuple(k for k in st
+                                           if k.startswith("ring"))}
+
+
+def paged_score_gate(params, cfg, seed, lens, what, **kw) -> float:
+    """score() of prompts of ``lens`` tokens (from seed) through the
+    contiguous scheduler and the paged one (``kw`` over sched_config):
+    the largest logprob difference, gated at PAGED_SCORE_ATOL."""
+    import numpy as np
+    from repro_torch.serve import Scheduler
+    rng = np.random.default_rng(seed + 85)
+    prompts = [rng.integers(0, cfg.vocab, ln).astype(np.int32)
+               for ln in lens]
+    lps = []
+    for sc in (sched_config(), sched_config(
+            allocator="paged", block_size=PAGED_BLOCK, **kw)):
+        sched = Scheduler(cfg, params, sc)
+        rids = sched.score(prompts)
+        sched.drain()
+        lps.append([sched.results[r].logprobs for r in rids])
+        del sched
+    err = max(float(np.abs(a - b).max()) for a, b in zip(*lps))
+    log(f"[paged] {cfg.name} {what}: score() of {list(lens)} tokens, paged "
+        f"against contiguous, max abs logprob difference {err}")
+    check(err <= PAGED_SCORE_ATOL, f"{what}: paged score() differs from "
+          f"the contiguous one by {err} > {PAGED_SCORE_ATOL}")
+    return err
+
+
+def paged_run(params, cfg, prompts, mnts, counter, **kw):
+    """One drive_scheduler run of a paged scheduler (``kw`` over
+    sched_config), the launch count at 0 just before and read just after:
+    (completions, stats, wall s, launches)."""
+    import torch
+    from repro_torch.serve import Scheduler
+    sched = Scheduler(cfg, params, sched_config(
+        allocator="paged", block_size=PAGED_BLOCK, **kw))
+    torch.cuda.synchronize()
+    counter.launches = 0
+    t0 = time.perf_counter()
+    done = drive_scheduler(sched, prompts, mnts)
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    st = sched.stats()
+    check(st["blocks_used"] == st["shared_blocks"] == 0
+          or kw.get("prefix_sharing"), f"paged {kw}: {st['blocks_used']} "
+          "blocks still used after the trace")
+    del sched
+    return done, st, wall, launches
+
+
+def paged_fp32(params, cfg, dev, seed, streams, counter) -> dict:
+    """The fp32 gemma-2b weights through the paged scheduler in the five
+    arms above, each against the contiguous run (``streams``, and for the
+    prefix arm a contiguous run of its own): equal streams under
+    stream_gate, preemption in the tight arms, none recomputed under swap
+    or when reserved, shared chunks mapped under prefix sharing, and no
+    flash_attention launch (chunks and decode attend over the views)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import Scheduler
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    want = [np.asarray(x, np.int32) for x in streams]
+    tight = sum(-(-len(p) // PAGED_BLOCK) for p in prompts[:3])
+    arms = (("equal", {}),
+            ("recompute", dict(num_blocks=tight)),
+            ("swap", dict(num_blocks=tight, preempt="swap")),
+            ("reserved", dict(num_blocks=tight, admission="reserved")))
+    out = {"block_size": PAGED_BLOCK, "tight_blocks": tight}
+    for name, kw in arms:
+        done, st, wall, launches = paged_run(params, cfg, prompts, mnts,
+                                             counter, **kw)
+        exact, ties = stream_gate(params, cfg, dev, prompts, mnts, done,
+                                  want, f"paged {name} against contiguous")
+        out[name] = {"wall_s": wall, "exact_streams": exact,
+                     "near_ties": ties, "launches": launches,
+                     **paged_stats(st)}
+        log(f"[paged] {cfg.name} fp32 {name} ({kw or 'equal memory'}): "
+            f"{wall:.2f} s, {exact} of {SCHED_REQS} streams equal the "
+            f"contiguous run's, near-ties {ties}; {launches} "
+            f"{counter.__name__.split('.')[-1]} launches; {paged_stats(st)}")
+        check(launches == 0, f"paged {name}: {launches} launches, expected "
+              "0 (chunks and decode attend over the views)")
+        if name in ("recompute", "swap"):
+            check(st["preempted"] >= 1, f"paged {name}: no preemption")
+        if name == "recompute":
+            check(st["recomputed_decode_steps"] >= 1,
+                  "paged recompute: no decode step recomputed")
+        if name == "swap":
+            check(st["recomputed_decode_steps"] == 0
+                  and st["swapped_in"] == st["swapped_out"] >= 1
+                  and st["swap_bytes_in"] == st["swap_bytes_out"] > 0,
+                  f"paged swap: {paged_stats(st)}")
+        if name in ("equal", "reserved"):
+            check(st["preempted"] == 0, f"paged {name}: preempted "
+                  f"{st['preempted']} times")
+
+    pp, pm = prefix_requests(cfg.vocab, seed)
+    base = drive_scheduler(Scheduler(cfg, params, sched_config()), pp, pm)
+    done, st, wall, launches = paged_run(params, cfg, pp, pm, counter,
+                                         prefix_sharing=True)
+    exact, ties = stream_gate(params, cfg, dev, pp, pm, done,
+                              [base[i].tokens for i in range(SCHED_REQS)],
+                              "paged prefix sharing against contiguous")
+    out["prefix"] = {"prefix_len": PREFIX_LEN,
+                     "prompt_lens": [len(p) for p in pp], "max_new": pm,
+                     "wall_s": wall, "exact_streams": exact,
+                     "near_ties": ties, **paged_stats(st)}
+    log(f"[paged] {cfg.name} fp32 prefix sharing ({SCHED_REQS} prompts "
+        f"{[len(p) for p in pp]} sharing {PREFIX_LEN} tokens): {wall:.2f} s, "
+        f"{exact} of {SCHED_REQS} streams equal the contiguous run's, "
+        f"near-ties {ties}; {paged_stats(st)}")
+    check(st["prefix_shared_chunks"] > 0, "prefix sharing mapped no chunk")
+    out["score_max_abs_diff"] = paged_score_gate(
+        params, cfg, seed, SCORE_LENS, "fp32 equal memory")
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_occupancy_bf16(params, cfg, seed, counter) -> dict:
+    """The bf16 gemma-2b weights: OCC_REQS requests at once through the
+    contiguous scheduler and through the paged one at equal memory, each
+    driven to the end with the launch count at 0 just before and read
+    just after. Per arm: useful occupancy (decode-ramp plus generated
+    tokens of the completions per decode tick, so recomputed ticks do not
+    count; the reference's measure), mean live slots, tok/s (host clock to
+    a synchronize), TTFT and ITL p50, preemptions and, paged, the mean
+    block utilisation over the ticks. Gate: the useful occupancy ratio."""
+    import torch
+    from repro_torch.serve import Scheduler
+    prompts, mnts = occupancy_requests(cfg.vocab, seed)
+    budget = SCHED_SLOTS * SCHED_MAX_LEN
+    arms = {"contiguous": sched_config(cache_requests=False),
+            "paged": sched_config(cache_requests=False, num_slots=OCC_SLOTS,
+                                  allocator="paged", block_size=PAGED_BLOCK,
+                                  num_blocks=budget // PAGED_BLOCK - 1)}
+    out = {"requests": OCC_REQS, "prompt_lens": [len(p) for p in prompts],
+           "max_new": mnts, "budget_positions": budget}
+    for name, sc in arms.items():
+        sched = Scheduler(cfg, params, sc)
+        torch.cuda.synchronize()
+        counter.launches = 0
+        t0 = time.perf_counter()
+        for p, n in zip(prompts, mnts):
+            sched.submit([p], max_new_tokens=n)
+        done, util = [], []
+        while sched.pending or sched.live:
+            done += sched.step()
+            if sched.slots.paged:
+                util.append(sched.slots.stats()["block_utilization"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counter.launches
+        st = sched.stats()
+        check(len(done) == OCC_REQS and all(
+            len(c.tokens) == n for c, n in zip(
+                sorted(done, key=lambda c: c.rid), mnts)),
+            f"occupancy {name}: {len(done)} completions")
+        useful = sum((c.prompt_len - 1) % SCHED_CHUNK + len(c.tokens)
+                     for c in done) / st["decode_steps"]
+        toks = st["generated_tokens"]
+        out[name] = {
+            "slots": sc.num_slots, "position_capacity":
+                sched.slots.position_capacity,
+            "useful_occupancy": useful,
+            "mean_occupancy": st["mean_occupancy"], "wall_s": wall,
+            "generated_tokens": toks, "tok_s": toks / wall,
+            "ttft_ms_p50": st["ttft_ms.p50"], "itl_ms_p50": st["itl_ms.p50"],
+            "decode_steps": st["decode_steps"],
+            "chunk_steps": st["chunk_steps"], "preempted": st["preempted"],
+            "recomputed_decode_steps": st["recomputed_decode_steps"],
+            "mean_block_utilization":
+                sum(util) / len(util) if util else None,
+            "launches": launches}
+        log(f"[paged] {cfg.name} bf16 occupancy, {name} ({sc.num_slots} "
+            f"slots, {sched.slots.position_capacity} global KV positions): "
+            f"useful occupancy {useful:.4f}, mean live "
+            f"{st['mean_occupancy']}, {toks} tokens in {wall:.3f} s "
+            f"({toks / wall:.1f} tok/s), TTFT p50 {st['ttft_ms.p50']:.1f} "
+            f"ms, ITL p50 {st['itl_ms.p50']:.2f} ms, {st['decode_steps']} "
+            f"decode ticks, {st['chunk_steps']} chunk steps, preempted "
+            f"{st['preempted']}, mean block utilisation "
+            f"{out[name]['mean_block_utilization']}; {launches} "
+            f"{counter.__name__.split('.')[-1]} launches")
+        check(launches == 0, f"occupancy {name}: {launches} launches")
+        del sched
+    check(out["paged"]["position_capacity"] + PAGED_BLOCK <= budget,
+          "the paged pool outgrew the contiguous budget")
+    ratio = (out["paged"]["useful_occupancy"]
+             / out["contiguous"]["useful_occupancy"])
+    out["occupancy_ratio"] = ratio
+    log(f"[paged] {cfg.name} bf16 useful occupancy paged / contiguous at "
+        f"equal memory: {ratio:.4f} (gate >= {OCC_GATE})")
+    check(ratio >= OCC_GATE, f"occupancy ratio {ratio} < {OCC_GATE}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_phase(dev, seed) -> dict:
+    """gemma3-12b at full width, RING_LAYERS deep, fp32: the scheduler
+    trace through the contiguous scheduler and the paged one, whose
+    sliding-window layers page their rings through a ring-mode group
+    (ring1024) beside the global group; streams under stream_gate, no
+    flash_attention launch in either."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import Scheduler
+
+    cfg = dataclasses.replace(configs.get_config(RING_ARCH),
+                              num_layers=RING_LAYERS, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(seed + 90)
+    t0 = time.perf_counter()
+    params = TT.init_model(cfg, g, dev)
+    torch.cuda.synchronize()
+    n = TT.param_count(params)
+    log(f"[ring] {cfg.name} fp32, {cfg.num_layers} of 48 layers (d_model "
+        f"{cfg.d_model}, head_dim {cfg.head_dim}, windows "
+        f"{sorted({s.window for s in cfg.pattern})}): {n} parameters drawn "
+        f"on the card in {time.perf_counter() - t0:.2f} s")
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    sched = Scheduler(cfg, params, sched_config())
+    KF.launches = 0
+    t0 = time.perf_counter()
+    base = drive_scheduler(sched, prompts, mnts)
+    wall_c = time.perf_counter() - t0
+    launches_c = KF.launches
+    del sched
+    done, st, wall, launches = paged_run(params, cfg, prompts, mnts, KF)
+    exact, ties = stream_gate(params, cfg, dev, prompts, mnts, done,
+                              [base[i].tokens for i in range(SCHED_REQS)],
+                              "ring groups against contiguous")
+    log(f"[ring] {cfg.name}: contiguous {wall_c:.2f} s, paged {wall:.2f} s; "
+        f"{exact} of {SCHED_REQS} streams equal, near-ties {ties}; "
+        f"flash_attention launches {launches_c} / {launches}; paged stats "
+        f"{paged_stats(st)}")
+    check("ring1024_blocks_total" in st and st["page_groups"] == 2,
+          f"no ring1024 group in the paged stats: {paged_stats(st)}")
+    check(launches_c == launches == 0, "flash_attention launched in the "
+          "ring scheduler runs")
+    score_err = paged_score_gate(params, cfg, seed, RING_SCORE_LENS,
+                                 "fp32 ring groups")
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": RING_ARCH, "layers": cfg.num_layers, "params": n,
+            "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+            "contiguous_wall_s": wall_c, "paged_wall_s": wall,
+            "exact_streams": exact, "near_ties": ties,
+            "distinct_tokens": sorted({len(set(base[i].tokens.tolist()))
+                                       for i in range(SCHED_REQS)}),
+            "score_max_abs_diff": score_err, **paged_stats(st)}
+
+
+def paged_rwkv(params, cfg, dev, seed, streams, counter) -> dict:
+    """RWKV-6 in fp32 through the paged scheduler: no KV, so zero
+    page-table groups and every leaf dense; the streams against the
+    contiguous run's under stream_gate, and ssm_scan launched once per
+    layer per chunk step."""
+    import numpy as np
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    done, st, wall, launches = paged_run(params, cfg, prompts, mnts,
+                                         counter)
+    exact, ties = stream_gate(params, cfg, dev, prompts, mnts, done,
+                              [np.asarray(x, np.int32) for x in streams],
+                              "paged RWKV against contiguous")
+    log(f"[paged] {cfg.name} fp32 paged (zero groups): {wall:.2f} s, "
+        f"{exact} of {SCHED_REQS} streams equal the contiguous run's, "
+        f"near-ties {ties}; {launches} ssm_scan launches over "
+        f"{st['chunk_steps']} chunk steps; {paged_stats(st)}")
+    check(st["page_groups"] == 0, "RWKV paged with page-table groups")
+    check(launches == cfg.num_layers * st["chunk_steps"] > 0,
+          f"ssm_scan launched {launches} times in the paged run, expected "
+          f"{cfg.num_layers} per chunk step x {st['chunk_steps']}")
+    return {"wall_s": wall, "exact_streams": exact, "near_ties": ties,
+            "launches": launches, **paged_stats(st)}
 
 
 def lm_kernel_vs_plain(dev, seed) -> dict:
@@ -1851,12 +2222,13 @@ def lm_kernel_vs_plain(dev, seed) -> dict:
     gvp = generate_vs_prefill(params, cfg, dev, seed, GVP_RTOL["rwkv"])
     sched = scheduler_fp32(params, cfg, dev, seed, GVP_RTOL["rwkv"], KS,
                            gate_forward=False)
+    paged = paged_rwkv(params, cfg, dev, seed, sched["streams"], KS)
     del params
     torch.cuda.empty_cache()
     return {"logits_max_abs_err": err, "logits_max_abs": scale,
             "cache_max_rel_err": cache_rel, "decay_share_below_clamp": share,
             "prefill_ms_kernel": ms_on, "prefill_ms_plain": ms_off,
-            "generate_vs_prefill": gvp, "scheduler": sched}
+            "generate_vs_prefill": gvp, "scheduler": sched, "paged": paged}
 
 
 def profiled(fn):
@@ -2143,12 +2515,13 @@ def attn_kernel_vs_plain(dev, seed) -> dict:
     gvp = generate_vs_prefill(params, cfg, dev, seed, GVP_RTOL["attn"])
     sched = scheduler_fp32(params, cfg, dev, seed, GVP_RTOL["attn"], KF,
                            gate_forward=True)
+    paged = paged_fp32(params, cfg, dev, seed, sched["streams"], KF)
     del params
     torch.cuda.empty_cache()
     return {"logits_max_abs_err": err, "logits_max_abs": scale,
             "cache": cache, "launches": {"kernel": n_on, "blockwise": n_off},
             "prefill_ms_kernel": ms_on, "prefill_ms_blockwise": ms_off,
-            "generate_vs_prefill": gvp, "scheduler": sched}
+            "generate_vs_prefill": gvp, "scheduler": sched, "paged": paged}
 
 
 def attn_serving(dev, seed) -> dict:
@@ -2285,6 +2658,7 @@ def attn_serving(dev, seed) -> dict:
               "run, expected 0 (chunks and decode attend over the cache)")
     out["scheduler"] = sched
     out["launches"]["scheduler"] = sched["continuous"]["launches"]
+    out["paged_occupancy"] = paged_occupancy_bf16(params, cfg, seed, KF)
     del params, res
     torch.cuda.empty_cache()
     return out
@@ -2440,6 +2814,7 @@ def main(argv=None) -> int:
     on_off = lm_kernel_vs_plain(dev, args.seed)
     lm = lm_serving(dev, args.seed)
     lm["fp32_kernel_vs_plain"] = on_off
+    lm["launches"]["paged_scheduler"] = on_off["paged"]["launches"]
     line["kernels"].append(ssm_scan_entry(dev, errs, lm))
     line["kernels"][-1]["ptxas"] = ptxas["ssm_scan"]
     line["lm"] = lm
@@ -2452,6 +2827,10 @@ def main(argv=None) -> int:
     line["kernels"].append(flash_attention_entry(dev, errs, attn))
     line["attn_lm"] = attn
     log(f"[attn] phase took {time.perf_counter() - t_attn:.1f} s")
+
+    t_ring = time.perf_counter()
+    line["ring_lm"] = ring_phase(dev, args.seed)
+    log(f"[ring] phase took {time.perf_counter() - t_ring:.1f} s")
     log(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))

@@ -20,8 +20,12 @@ Three paths attend, as in the reference:
 
 The KV cache is bf16 whatever the model's dtype, as in the reference. Its
 updates are out of place (a new tensor per update), as JAX's are, so a
-caller may reuse a cache it passed in. The paged-cache functions come with
-the paged serving slice.
+caller may reuse a cache it passed in.
+
+The paged layout (``make_paged_cache``, ``paged_view``, ``paged_writeback``)
+keeps attention KV in one flat pool of blocks per layer group, read and
+written through the page tables of ``serve.paging``; its writeback is in
+place, since the pool is the scarce memory.
 """
 
 from __future__ import annotations
@@ -194,6 +198,65 @@ def make_cache(batch: int, slots: int, kv_heads: int, head_dim: int,
         v=torch.zeros((batch, slots, kv_heads, head_dim), dtype=dtype,
                       device=device),
         pos=torch.full(shape, -1, dtype=torch.int32, device=device))
+
+
+def make_paged_cache(num_blocks: int, block_size: int, kv_heads: int,
+                     head_dim: int, dtype=torch.bfloat16, periods: int = 1,
+                     device=None) -> KVCache:
+    """Flat physical block pool: (num_blocks + 1) * block_size rows, the
+    last block the TRASH block, the sink of unmapped page-table entries
+    (serve.paging). Backs global KV and sliding-window rings alike: the
+    view length lives in the page table."""
+    rows = (num_blocks + 1) * block_size
+    return KVCache(
+        k=torch.zeros((periods, rows, kv_heads, head_dim), dtype=dtype,
+                      device=device),
+        v=torch.zeros((periods, rows, kv_heads, head_dim), dtype=dtype,
+                      device=device),
+        pos=torch.full((periods, rows), -1, dtype=torch.int32,
+                       device=device))
+
+
+def paged_live_rows(flat: KVCache, block_size: int) -> int:
+    """Rows of ``flat`` that back real blocks: all but the trash block,
+    which is the pool's last."""
+    return flat.k.shape[1] - block_size
+
+
+def paged_view(flat: KVCache, rows: Tensor, live_rows: int) -> KVCache:
+    """Gather a per-slot contiguous view through a page table.
+
+    flat: k/v (P, R, KV, hd), pos (P, R); rows: (B, V) int64 physical row
+    per view position (``PageTable.rows()``); rows at or past
+    ``live_rows`` are trash and read as the empty-slot encoding (k=v=0,
+    pos=-1), which is what a freshly reset contiguous slot holds, so
+    attending over the view is the contiguous path. For a sliding-window
+    layer V is the ring length and ``rows`` come from a ring-mode table:
+    ``pos % V`` addressing resolves through the view as in a dense ring.
+    """
+    ok = rows < live_rows                                   # (B, V)
+    k = torch.where(ok[None, :, :, None, None], flat.k[:, rows], 0)
+    v = torch.where(ok[None, :, :, None, None], flat.v[:, rows], 0)
+    pos = torch.where(ok[None], flat.pos[:, rows], -1)
+    return KVCache(k, v, pos)
+
+
+def paged_writeback(flat: KVCache, view: KVCache, rows: Tensor) -> KVCache:
+    """Scatter an updated view back into the pool, in place; returns
+    ``flat``.
+
+    A mapped row has one writer per step: a block shared by several slots
+    is never inside a write span (the first write into one is preceded by
+    a copy-on-write, ``serve/slots.py`` ensure()), and every sharer writes
+    back the bytes it gathered. Unmapped view positions of every slot all
+    land in the trash block, so its rows receive duplicate indices, and on
+    CUDA which duplicate wins is undefined. That is harmless only because
+    trash is always read masked (``paged_view``): never read it unmasked.
+    """
+    flat.k[:, rows] = view.k.to(flat.k.dtype)
+    flat.v[:, rows] = view.v.to(flat.v.dtype)
+    flat.pos[:, rows] = view.pos.to(torch.int32)
+    return flat
 
 
 def cache_update(cache: KVCache, k_new: Tensor, v_new: Tensor,

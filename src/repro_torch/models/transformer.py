@@ -319,13 +319,21 @@ def apply_model(params: Model, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, slots: int,
-                per_slot_pos: bool = False, device: DeviceLike = None):
+                per_slot_pos: bool = False, device: DeviceLike = None,
+                paged_global_attn: bool = False,
+                paged_window_attn: bool = False):
     """Zero caches for decode: dict p<i> -> stacked-over-periods leaves,
     every leaf but a shared ``pos`` with the batch on axis 1. Attention
     layers get bf16 ``KVCache`` rings of ``slots`` slots (``min(slots,
     window)`` for a sliding window), with per-row positions (periods,
     batch, slots) when ``per_slot_pos`` else shared ones (periods, slots);
-    RWKV state is O(1) per row."""
+    RWKV state is O(1) per row.
+
+    ``paged_global_attn`` leaves ``{"attn": None}`` for the layers whose
+    view spans all ``slots`` (global attention, or a window >= slots), and
+    ``paged_window_attn`` for the sliding-window layers with a shorter
+    ring: those leaves live in the block pools of the paged slot backing
+    (``serve.slots``). RWKV state always stays dense."""
     dev = resolve_device(device)
     np_, d = cfg.num_periods, cfg.d_model
     f32 = dict(dtype=torch.float32, device=dev)
@@ -333,6 +341,10 @@ def init_caches(cfg: ModelConfig, batch: int, slots: int,
     for i, spec in enumerate(cfg.pattern):
         if spec.mixer == "attn":
             sl = min(slots, spec.window) if spec.window else slots
+            if (paged_global_attn and sl == slots) or \
+                    (paged_window_attn and sl < slots):
+                caches[f"p{i}"] = {"attn": None}
+                continue
             pos = (np_, batch, sl) if per_slot_pos else (np_, sl)
             kv = (np_, batch, sl, cfg.num_kv_heads, cfg.head_dim)
             caches[f"p{i}"] = {"attn": attention.KVCache(

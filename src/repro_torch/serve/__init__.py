@@ -1,7 +1,8 @@
 """LM serving (port of ``repro.serve``): the engine's prefill / decode /
-chunked-prefill steps and per-request ``generate``, the contiguous slot
-pool and the continuous-batching scheduler. The paged allocator,
-speculative decoding and the sharded pool come with later slices."""
+chunked-prefill steps and per-request ``generate``, the slot pool
+(contiguous or paged: block pools, preemption by recompute or swap, prefix
+sharing, window rings) and the continuous-batching scheduler. Speculative
+decoding and the sharded pool come with later slices."""
 
 from repro_torch.serve.engine import SamplingPolicy, generate, sample_token
 from repro_torch.serve.scheduler import (Completion, RequestCache, Scheduler,

@@ -12,8 +12,14 @@ plain ``blockwise_attention`` over the cache, so ``generate`` launches no
 ``flash_attention``. Sampling at
 ``temperature > 0`` draws Gumbel noise from a ``torch.Generator`` (the
 reference's Gumbel-max), so only greedy streams equal the reference's.
-The verify, paged and sharded steps come with the paging slice (ROADMAP
-queue 1, item 4).
+
+The paged steps split the caches into dense per-slot leaves and flat block
+pools read through page tables (``serve.paging``): each gathers a per-slot
+view of every paged layer, runs the plain step on the merged tree and
+writes the views back into the pools in place. The block-row functions
+reset, gather, upload and copy whole blocks of every pool (the device half
+of block mapping, swap and copy-on-write). The verify and sharded steps
+come with later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention
 from repro_torch.models import transformer as T
 
 Tensor = torch.Tensor
@@ -203,6 +210,111 @@ def make_chunk_step(cfg: ModelConfig):
         return logits, caches
 
     return chunk
+
+
+# ---------------------------------------------------------------------------
+# paged steps: dense per-slot leaves + flat block pools behind page tables
+# ---------------------------------------------------------------------------
+
+def merge_paged(dense, paged, rows, block_size: int):
+    """The full cache tree the model steps expect: dense entries pass
+    through; each paged layer (``{"attn": None}`` in ``dense``) gets the
+    per-slot view gathered through ``rows[key]``. A key's trash floor is
+    its pool's rows minus one block."""
+    caches = {}
+    for key, entry in dense.items():
+        if key in paged:
+            entry = dict(entry)
+            entry["attn"] = attention.paged_view(
+                paged[key], rows[key],
+                attention.paged_live_rows(paged[key], block_size))
+        caches[key] = entry
+    return caches
+
+
+def split_paged(caches, paged, rows):
+    """Inverse of merge_paged: write each updated view back into its pool
+    (in place) and return the dense tree with the None placeholders."""
+    dense = {}
+    for key, entry in caches.items():
+        if key in paged:
+            entry = dict(entry)
+            attention.paged_writeback(paged[key], entry["attn"], rows[key])
+            entry["attn"] = None
+        dense[key] = entry
+    return dense
+
+
+def make_paged_decode_step(cfg: ModelConfig):
+    """decode(params, dense, paged, rows, tokens, pos, temps, generator,
+    top_ks, top_ps, block_size) -> (next_tok, logits, dense) over the whole
+    pool: ``rows`` maps each paged key to (B, V_key) physical rows (the keys
+    of one page-table group share one tensor); ``paged`` is updated in
+    place."""
+    step = make_slot_decode_step(cfg)
+
+    @torch.inference_mode()
+    def decode(params, dense, paged, rows, tokens, pos, temps, generator,
+               top_ks, top_ps, block_size: int):
+        caches = merge_paged(dense, paged, rows, block_size)
+        nxt, logits, caches = step(params, caches, tokens, pos, temps,
+                                   generator, top_ks, top_ps)
+        return nxt, logits, split_paged(caches, paged, rows)
+
+    return decode
+
+
+def make_paged_chunk_step(cfg: ModelConfig):
+    """chunk(params, dense, paged, rows, tokens, pos, block_size) ->
+    (logits (m, C, V), dense) for a sub-batch: ``dense`` holds the
+    sub-batch's dense leaves and ``rows`` its (m, V_key) rows; ``paged``
+    is updated in place."""
+    step = make_chunk_step(cfg)
+
+    @torch.inference_mode()
+    def chunk(params, dense, paged, rows, tokens, pos, block_size: int):
+        caches = merge_paged(dense, paged, rows, block_size)
+        logits, caches = step(params, caches, tokens, pos)
+        return logits, split_paged(caches, paged, rows)
+
+    return chunk
+
+
+@torch.inference_mode()
+def reset_block_rows(paged, rows: Tensor):
+    """Zero the physical ``rows`` of freshly mapped blocks in every pool
+    (k=v=0, pos=-1), the paged counterpart of a slot reset."""
+    for c in paged.values():
+        c.k[:, rows] = 0
+        c.v[:, rows] = 0
+        c.pos[:, rows] = -1
+
+
+@torch.inference_mode()
+def gather_block_rows(paged, rows: Tensor):
+    """The physical ``rows`` of every pool, as new tensors: the device
+    half of a swap-out."""
+    return {key: attention.KVCache(*(x.index_select(1, rows) for x in c))
+            for key, c in paged.items()}
+
+
+@torch.inference_mode()
+def upload_block_rows(paged, saved, rows: Tensor):
+    """Write saved block bytes (``gather_block_rows``'s layout, any
+    device) into freshly mapped physical ``rows``: the resume half of a
+    swap."""
+    for key, c in paged.items():
+        for x, y in zip(c, saved[key]):
+            x[:, rows] = y.to(device=x.device, dtype=x.dtype)
+
+
+@torch.inference_mode()
+def copy_block_rows(paged, src_rows: Tensor, dst_rows: Tensor):
+    """Duplicate the physical ``src_rows`` into ``dst_rows`` in every pool
+    on the device: the copy half of copy-on-write."""
+    for c in paged.values():
+        for x in c:
+            x[:, dst_rows] = x[:, src_rows]
 
 
 def generate(params, cfg: ModelConfig, prompt, max_new_tokens: int,

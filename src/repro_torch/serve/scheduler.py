@@ -32,22 +32,41 @@ gives one stream, which is not the reference's (JAX keys).
 A memoizing request cache (prompt + params -> tokens) fronts the pool for
 repeated greedy requests, and identical requests in flight coalesce.
 
+With ``allocator='paged'`` the pool stores attention KV at block
+granularity (``serve.paging``): admission gates on free blocks in every
+page-table group (global KV and, with ``paged_window_attn``, one ring group
+per window length), live slots map blocks as their write position grows,
+retire frees them, and a growth failure preempts the youngest slot back to
+the front of the queue. At the equal-memory defaults (``num_blocks`` and
+``num_window_blocks`` None) scheduling is the contiguous scheduler's;
+smaller pools admit more concurrent requests per byte at the cost of
+preemptions. What a preemption discards is the ``preempt`` policy:
+``recompute`` restarts the victim from scratch (counted in
+``recomputed_decode_steps``); ``swap`` copies its blocks to host tensors
+and resumes it at its saved position on re-admission, unless the swap
+budget rejects them (then it recomputes). ``admission='reserved'`` books
+blocks for prompt + max_new at admission, so admitted requests are never
+preempted. ``prefix_sharing`` maps indexed chunk-aligned prompt prefixes
+read-shared, with copy-on-write.
+
 Observability: the scheduler registers as the ``serve`` provider of the
 metrics registry, stamps each request's timeline (queue wait, time to
-first token, inter-token latency) and, when a Tracer is enabled, records
-``admit`` / ``prefill`` / ``decode`` / ``retire`` events per slot track and
-``decode-tick`` / ``prefill-chunk`` spans on the scheduler track.
+first token, inter-token latency, time swapped out, recomputed steps) and,
+when a Tracer is enabled, records ``admit`` / ``prefill`` / ``decode`` /
+``preempt`` / ``swap-out`` / ``swap-in`` / ``retire`` events per slot
+track and ``decode-tick`` / ``prefill-chunk`` spans on the scheduler
+track.
 
-The paged allocator (``allocator='paged'``, with preemption, swap and
-prefix sharing), speculative decoding (``speculate > 0``) and the sharded
-pool (``mesh_shards``) raise NotImplementedError: they come with later
-slices (ROADMAP queue 1, item 4).
+Speculative decoding (``speculate > 0``) and the sharded pool
+(``mesh_shards``) raise NotImplementedError after the reference's
+ValueError checks: they come with later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -84,14 +103,40 @@ class SchedulerConfig:
     # 'static': admit a full batch only when the pool is EMPTY (the
     # pad-to-slowest baseline).
     admit: str = "continuous"
-    # 'contiguous': every slot reserves max_len cache rows. 'paged' and
-    # the paged-only knobs below are validated as in the reference; paged
-    # raises NotImplementedError (the paging slice brings it and its block
-    # sizes, swap budget and prefix index)
+    # 'contiguous': every slot reserves max_len cache rows. 'paged':
+    # attention KV lives in block pools (serve.paging); admission gates on
+    # free BLOCKS, slots grow block by block, and a growth failure preempts
+    # the youngest slot.
     allocator: str = "contiguous"
+    block_size: int = 16        # paged: cache positions per block
+    # paged: physical blocks in the global-KV pool. None = equal memory
+    # with the contiguous layout (num_slots * ceil(max_len / block_size)),
+    # where no request ever fails to grow
+    num_blocks: Optional[int] = None
+    # paged: also page sliding-window rings through ring-mode page-table
+    # groups (one per window length) instead of a dense ring per slot
+    paged_window_attn: bool = True
+    # paged: physical blocks per window-ring pool. None = equal memory with
+    # the dense rings (num_slots * ceil(min(window, max_len) / block_size))
+    num_window_blocks: Optional[int] = None
+    # preempt='swap': byte budget of the host SwapStore. None = unbounded;
+    # a victim whose bytes would exceed it is recomputed instead
+    # (stats()['swap_rejected'])
+    swap_bytes_budget: Optional[int] = None
+    # paged: what preempt-on-OOB discards. 'recompute' restarts the victim;
+    # 'swap' parks its block bytes on the host and resumes it there
     preempt: str = "recompute"
+    # paged: 'optimistic' books blocks for the prompt only; 'reserved'
+    # books blocks_for(prompt + max_new), so admitted traffic is never
+    # preempted
     admission: str = "optimistic"
+    # paged: share block-aligned prompt prefixes through a refcounted
+    # PrefixIndex, copy-on-write; greedy streams equal the unshared run
     prefix_sharing: bool = False
+    # prefix_sharing: LRU entry bound of the prefix index
+    prefix_index_capacity: int = 512
+    # the sharded pool (validated as in the reference, then
+    # NotImplementedError)
     mesh_shards: Optional[int] = None
     placement: str = "least_blocks"
 
@@ -105,8 +150,10 @@ class _Slot:
     policy: engine.SamplingPolicy
     mode: str = "generate"      # 'generate' | 'score' (prompt logprobs)
     ctx: int = 0                # tokens consumed into the slot's cache
+    chunk_tokens: int = 0       # of which via chunk steps (not decode)
     out: List[int] = dataclasses.field(default_factory=list)
     logprobs: List[float] = dataclasses.field(default_factory=list)
+    admit_seq: int = -1         # admission order: preemption evicts max
 
 
 @dataclasses.dataclass
@@ -114,8 +161,12 @@ class _Timeline:
     """Per-request phase stamps (perf_counter), kept while the request is
     in flight and folded into its Completion at finish."""
     submit_t: float
-    admit_t: Optional[float] = None     # slot claim (None = cached)
+    admit_t: Optional[float] = None     # first slot claim (None = cached)
     first_token_t: Optional[float] = None
+    swap_out_t: Optional[float] = None  # open swap interval, if any
+    swapped_s: float = 0.0              # total time parked in the SwapStore
+    recomputed_steps: int = 0           # decode ticks redone after preempt
+    preemptions: int = 0
 
 
 @dataclasses.dataclass
@@ -126,8 +177,11 @@ class Completion:
     prompt_len: int
     submit_t: float             # time.perf_counter() stamp at submit
     finish_t: float             # time.perf_counter() stamp at finish
-    admit_t: Optional[float] = None
+    admit_t: Optional[float] = None     # first slot claim
     first_token_t: Optional[float] = None
+    swapped_s: float = 0.0              # time parked in the SwapStore
+    recomputed_steps: int = 0           # decode ticks redone after preempt
+    preemptions: int = 0
     # score() requests: log p(prompt[i] | prompt[:i]) for i = 1..L-1,
     # fp32 (L-1,); None for generate requests
     logprobs: Optional[np.ndarray] = None
@@ -229,10 +283,9 @@ class RequestCache:
 _COUNTER_KEYS = (
     "submitted", "admitted", "completed", "steps", "decode_steps",
     "chunk_steps", "generated_tokens", "prefill_tokens",
-    "live_decode_slots",
+    "live_decode_slots", "preempted", "swapped_in", "swapped_out",
+    "recomputed_decode_steps", "prefix_shared_tokens",
 )
-
-_LATER = "ROADMAP queue 1, item 4"
 
 
 def _token_logprobs(logits: Tensor, targets: np.ndarray) -> np.ndarray:
@@ -291,17 +344,30 @@ class Scheduler:
                     f"{sched.speculate + 1} exceeds the smallest "
                     f"attention view length {min_view} (the rollback "
                     "scatter needs distinct ring rows)")
-        for what, on in (("allocator='paged'", sched.allocator == "paged"),
-                         ("speculate > 0", sched.speculate > 0)):
+        for what, on, item in (
+                ("speculate > 0", sched.speculate > 0, "speculation"),
+                ("mesh_shards", sched.mesh_shards is not None,
+                 "the sharded pool")):
             if on:
                 raise NotImplementedError(
                     f"SchedulerConfig {what} is not ported yet: it comes "
-                    f"with a later slice ({_LATER})")
+                    f"with {item} (ROADMAP queue 1)")
         # validates temperature/top_k/top_p ranges (ValueError on bad)
         engine.SamplingPolicy(sched.temperature, sched.top_k, sched.top_p)
         self.device = params.final_norm["scale"].device
-        self.slots = SlotManager(cfg, sched.num_slots, sched.max_len,
-                                 device=self.device)
+        # a shared prefix ends on a chunk AND a block boundary: the sharer
+        # skips whole chunk steps and maps whole blocks, so only lcm-aligned
+        # prefixes chunk the rest of the prompt as an unshared run does
+        self.slots = SlotManager(
+            cfg, sched.num_slots, sched.max_len,
+            paged=sched.allocator == "paged", block_size=sched.block_size,
+            num_blocks=sched.num_blocks,
+            paged_window=sched.paged_window_attn,
+            num_window_blocks=sched.num_window_blocks,
+            swap_bytes_budget=sched.swap_bytes_budget,
+            prefix_sharing=sched.prefix_sharing,
+            prefix_align=math.lcm(sched.prefill_chunk, sched.block_size),
+            prefix_capacity=sched.prefix_index_capacity, device=self.device)
         self._queue: "collections.deque[_Slot]" = collections.deque()
         self._by_slot: Dict[int, _Slot] = {}
         self._inflight: Dict[Tuple, List[int]] = {}
@@ -312,6 +378,7 @@ class Scheduler:
         self._gen = torch.Generator(device=self.device).manual_seed(
             sched.seed)
         self._next_rid = 0
+        self._next_seq = 0          # admission sequence (preempt youngest)
         self.counters = collections.Counter(dict.fromkeys(_COUNTER_KEYS, 0))
         # per-request latency histograms (lifetime count/sum, windowed
         # p50/p95), fresh per scheduler
@@ -319,7 +386,7 @@ class Scheduler:
                      for name in ("queue_wait_ms", "ttft_ms", "itl_ms")}
         self._tracer = tracer
         # slot -> (phase name, t0, rid): the open per-slot phase span,
-        # closed at first token / retire (tracer enabled only)
+        # closed at first token / preempt / retire (tracer enabled only)
         self._open_phase: Dict[int, Tuple[str, float, int]] = {}
         obs_metrics.REGISTRY.register_provider("serve", self)
 
@@ -365,6 +432,7 @@ class Scheduler:
                 raise ValueError(
                     f"prompt length {len(p)} + max_new {mnt} exceeds "
                     f"max_len {self.sched.max_len}")
+            self._check_fits(len(p) + mnt)
             batch.append(p)
         return [self._accept(p, mnt, policy, "generate") for p in batch]
 
@@ -382,9 +450,18 @@ class Scheduler:
                 raise ValueError(
                     f"score prompt length {len(p)} must be in "
                     f"[2, max_len={self.sched.max_len}]")
+            self._check_fits(len(p))
             batch.append(p)
         policy = engine.SamplingPolicy()        # scoring is greedy-only
         return [self._accept(p, 0, policy, "score") for p in batch]
+
+    def _check_fits(self, n_positions: int):
+        """Progress guarantee of preempt-on-OOB: with every other slot
+        evicted the oldest request must fit the whole pool, in every
+        page-table group (ring demand clamps at the full ring)."""
+        why = self.slots.fits_pool(n_positions)
+        if why is not None:
+            raise ValueError(why)
 
     def _accept(self, p: np.ndarray, mnt: int,
                 policy: engine.SamplingPolicy, mode: str) -> int:
@@ -479,27 +556,123 @@ class Scheduler:
     # -- internals -----------------------------------------------------------
 
     def _admit(self):
+        """FCFS with head-of-line blocking: while the queue head cannot
+        admit (no free slot, or, paged, not its blocks) nothing behind it
+        jumps the line."""
         if self.sched.admit == "static" and self._by_slot:
             return      # static batching: wait for the whole batch
-        while self._queue and self._head_admissible():
-            self._admit_head()
+        while self._queue and self._admit_head():
+            pass
 
-    def _head_admissible(self) -> bool:
-        """Could the queue head admit right now? (A free slot.)"""
-        return self.slots.can_admit()
-
-    def _admit_head(self):
-        """Admit the queue head onto a free slot."""
-        st = self._queue.popleft()
-        slot = self.slots.alloc(st.rid)
+    def _admit_head(self) -> bool:
+        """Try to admit the queue head; True = admitted (and popped)."""
+        st = self._queue[0]
+        swapped_in = False
+        if self.slots.is_swapped(st.rid):
+            # resume a swap-preempted request: its saved blocks are remapped
+            # and uploaded; it continues at st.ctx with st.out intact
+            got = self.slots.swap_in(st.rid)
+            if got is None:
+                return False
+            slot, _ = got
+            self.counters["swapped_in"] += 1
+            swapped_in = True
+        else:
+            # reserved admission books the whole generation budget up
+            # front, so growth never runs out (submit checked it fits);
+            # prefix sharing needs the prompt and the request's span (ring
+            # groups share only when no write wraps into the shared
+            # prefix). Score rows never share: the chunk steps a shared
+            # prefix skips are what scoring reads.
+            need = len(st.prompt) + (
+                st.max_new_tokens
+                if self.sched.admission == "reserved" else 0)
+            span = len(st.prompt) + st.max_new_tokens
+            pr = st.prompt if st.mode == "generate" else None
+            if not self.slots.can_admit(need, prompt=pr, span=span):
+                return False
+            slot = self.slots.alloc(st.rid, prompt_len=need, prompt=pr,
+                                    span=span)
+            start = self.slots.prefill_start(slot)
+            if start:
+                # the leading `start` positions were mapped to index-held
+                # blocks whose KV exists: prefill resumes past them, at the
+                # chunk offsets an unshared run uses
+                st.ctx = start
+                st.chunk_tokens = start
+                self.counters["prefix_shared_tokens"] += start
+        self._queue.popleft()
+        st.admit_seq = self._next_seq
+        self._next_seq += 1
         self._by_slot[slot] = st
         self.counters["admitted"] += 1
+        now = time.perf_counter()
         tl = self._tl[st.rid]
-        tl.admit_t = time.perf_counter()
-        self._lat["queue_wait_ms"].observe((tl.admit_t - tl.submit_t) * 1e3)
-        self.tracer.instant("admit", f"slot{slot}", rid=st.rid,
-                            prompt_len=len(st.prompt))
-        self._phase_begin(slot, "prefill", st.rid)
+        if tl.admit_t is None:
+            tl.admit_t = now        # first admission only (queue wait)
+            self._lat["queue_wait_ms"].observe((now - tl.submit_t) * 1e3)
+        if swapped_in:
+            if tl.swap_out_t is not None:
+                tl.swapped_s += now - tl.swap_out_t
+                tl.swap_out_t = None
+            self.tracer.instant("swap-in", f"slot{slot}", rid=st.rid)
+        else:
+            self.tracer.instant("admit", f"slot{slot}", rid=st.rid,
+                                prompt_len=len(st.prompt))
+        self._phase_begin(slot, "prefill" if st.ctx < len(st.prompt)
+                          else "decode", st.rid)
+        return True
+
+    def _preempt(self, slot: int):
+        """Evict a live slot to free its blocks (paged growth failure); the
+        request re-queues at the FRONT. Under preempt='recompute' it
+        restarts from scratch and every decode step it had consumed is
+        counted in 'recomputed_decode_steps'. Under preempt='swap' its
+        block bytes move to the host SwapStore and it later resumes at
+        st.ctx, unless the store's budget rejects them (the store counts
+        that, stats()['swap_rejected']): then it recomputes."""
+        st = self._by_slot.pop(slot)
+        self._phase_end(slot)
+        tl = self._tl[st.rid]
+        swapped = False
+        if self.sched.preempt == "swap":
+            swapped = self.slots.swap_out(slot) is not None
+            if swapped:
+                self.counters["swapped_out"] += 1
+                tl.swap_out_t = time.perf_counter()
+                self.tracer.instant("swap-out", f"slot{slot}", rid=st.rid)
+        if not swapped:
+            self.slots.release(slot)
+            # the decode ticks this victim consumed (ctx minus chunk-step
+            # tokens), which the restart pays for again
+            wasted = st.ctx - st.chunk_tokens
+            self.counters["recomputed_decode_steps"] += wasted
+            tl.recomputed_steps += wasted
+            tl.first_token_t = None     # the restart re-earns its TTFT
+            self.tracer.instant("preempt", f"slot{slot}", rid=st.rid,
+                                wasted_steps=wasted)
+            st.ctx = 0
+            st.chunk_tokens = 0
+            st.out = []
+            st.logprobs = []    # a score restart collects from scratch
+        st.admit_seq = -1
+        self._queue.appendleft(st)
+        self.counters["preempted"] += 1
+        tl.preemptions += 1
+
+    def _ensure_or_preempt(self, slot: int, upto_pos: int) -> bool:
+        """Grow ``slot``'s storage to cover ``upto_pos``; on block
+        exhaustion evict the youngest live slot and retry. The oldest live
+        request is only ever evicted by itself (when nothing younger is
+        left), and submit checked that it fits an empty pool, so the pool
+        always makes progress. Returns False iff ``slot`` was preempted."""
+        while not self.slots.ensure(slot, upto_pos):
+            victim = max(self._by_slot,
+                         key=lambda s: self._by_slot[s].admit_seq)
+            self._preempt(victim)
+            if victim == slot:
+                return False
+        return True
 
     def _prefill_chunks(self):
         """Consume every pending full chunk (first L-1 prompt tokens only;
@@ -513,6 +686,15 @@ class Scheduler:
             if not need:
                 return
             sts = [self._by_slot[s] for s in need]
+            for s, st in zip(need, sts):
+                # prompts are mapped whole at admission, so a chunk never
+                # needs a new block; write_from bounds the copy-on-write
+                # scan to the chunk's span, which starts at or past a
+                # shared prefix
+                if not self.slots.ensure(s, st.ctx + ch - 1,
+                                         write_from=st.ctx):
+                    raise RuntimeError(
+                        "prefill chunk outgrew the admission mapping")
             toks = np.stack([st.prompt[st.ctx:st.ctx + ch] for st in sts])
             pos = np.asarray([st.ctx for st in sts], np.int64)
             with self.tracer.span("prefill-chunk", "scheduler",
@@ -533,6 +715,7 @@ class Scheduler:
                     sts[j].logprobs.extend(float(x) for x in lp[row])
             for st in sts:
                 st.ctx += ch
+                st.chunk_tokens += ch
             self.counters["chunk_steps"] += 1
             self.counters["prefill_tokens"] += len(need) * ch
             # a score row whose last needed position (L-2) was just
@@ -545,8 +728,9 @@ class Scheduler:
         return torch.as_tensor(x).to(device=self.device, dtype=dtype)
 
     def _first_token(self, slot: int, st: _Slot):
-        """First generated token: TTFT stamp and the prefill -> decode phase
-        flip."""
+        """First generated token: TTFT stamp, the prefill -> decode phase
+        flip, and publication of the prompt's chunk-consumed blocks to the
+        prefix index (a no-op without prefix sharing)."""
         tl = self._tl[st.rid]
         if tl.first_token_t is None:
             tl.first_token_t = time.perf_counter()
@@ -554,6 +738,9 @@ class Scheduler:
                 (tl.first_token_t - tl.submit_t) * 1e3)
         self._phase_end(slot)
         self._phase_begin(slot, "decode", st.rid)
+        self.slots.register_prefix(
+            slot, st.prompt, len(st.prompt) + st.max_new_tokens,
+            st.chunk_tokens)
 
     def _decode_once(self):
         """One decode over the FULL pool: per-slot tokens, positions and
@@ -562,6 +749,14 @@ class Scheduler:
         their results are never read."""
         if not self._by_slot:
             return
+        if self.slots.paged:
+            # every live slot writes its cache at position ctx this tick:
+            # map the covering blocks, preempting youngest-first on OOB
+            for s in sorted(self._by_slot):
+                if s in self._by_slot:
+                    self._ensure_or_preempt(s, self._by_slot[s].ctx)
+            if not self._by_slot:
+                return
         b = self.slots.num_slots
         toks = np.zeros((b, 1), np.int64)
         pos = np.zeros((b,), np.int64)
@@ -649,7 +844,8 @@ class Scheduler:
             rid=rid, tokens=tokens, reason=reason, prompt_len=prompt_len,
             submit_t=tl.submit_t, finish_t=time.perf_counter(),
             admit_t=tl.admit_t, first_token_t=tl.first_token_t,
-            logprobs=logprobs)
+            swapped_s=tl.swapped_s, recomputed_steps=tl.recomputed_steps,
+            preemptions=tl.preemptions, logprobs=logprobs)
         self.results[rid] = comp
         # ITL only means something for pool-served requests
         if tl.admit_t is not None and tl.first_token_t is not None:

@@ -270,13 +270,19 @@ def test_submit_validation(model):
         make(rwkv_cfg, rwkv_params, speculate=2)
     with pytest.raises(ValueError, match="mesh_shards"):
         Scheduler(tcfg, tparams, SchedulerConfig(), mesh=object())
-    for kw in (dict(allocator="paged"), dict(speculate=2),
-               dict(allocator="paged", mesh_shards=2),
-               dict(allocator="paged", prefix_sharing=True)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    # the paged allocator and prefix sharing are ported; speculation and
+    # the sharded pool raise with their ROADMAP pointer
+    assert make(allocator="paged").slots.paged
+    assert make(allocator="paged", prefix_sharing=True).slots.paged
+    for kw, item in ((dict(speculate=2), "speculation"),
+                     (dict(allocator="paged", mesh_shards=2),
+                      "the sharded pool")):
+        with pytest.raises(NotImplementedError,
+                           match=f"{item} \\(ROADMAP queue 1\\)"):
             make(**kw)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        SlotManager(tcfg, 2, 16, paged=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        SlotManager(tcfg, 2, 16, paged=True, mesh_shards=2, device="cpu")
+    assert SlotManager(tcfg, 2, 16, paged=True, device="cpu").paged
 
 
 def test_per_slot_sampling_policies(model):
