@@ -26,21 +26,30 @@ against the contiguous run (equal memory; a tight pool under recompute,
 swap and reserved admission; prefix sharing) and bf16 occupancy against
 the contiguous pool at equal memory; for RWKV-6 a paged run with no
 page-table group; and gemma3-12b at full width, cut to 12 layers, whose
-sliding-window rings page through a ring group.
+sliding-window rings page through a ring group. Then speculative decoding
+(``speculate=3``, bf16) against plain decode on the scheduler trace, for
+gemma-2b on contiguous slots and on the paged pool and for gemma3-12b on
+the paged pool with its ring group (and its ``score()`` with and without
+speculation), and the closed observability loop: a forced overload on the
+tight paged pool under a queue-wait SLO and a ``BackpressureController``
+against the uncontrolled run, and one ``AutotuneController`` re-sweep of
+``dtw.tile`` over ``KernelService`` DTW submits.
 
     python3 chip_smoke.py [--seed 0]
 
 Exits non-zero, printing no result, without a CUDA card or without the
 repository's ``src/`` beside it. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is a JSON object with
-one entry per kernel, the SpMV and NW numbers (``paper_kernels``) and the
-LM paths' serving numbers (``lm``, ``attn_lm``, ``ring_lm``).
+one entry per kernel, the SpMV and NW numbers (``paper_kernels``), the
+LM paths' serving numbers (``lm``, ``attn_lm``, ``ring_lm``,
+``spec_ring_lm``) and the autotune re-sweep (``obs_autotune``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1500,6 +1509,12 @@ def generate_vs_prefill(params, cfg, dev, seed, rtol) -> dict:
 # every 3 steps
 SCHED_SLOTS, SCHED_MAX_LEN, SCHED_CHUNK, SCHED_REQS = 4, 2304, 256, 8
 SCHED_TIE_RTOL = 1e-3         # a first difference must be a near-tie
+# the near-tie bound of bf16 runs: a bf16 logit carries 8 bits (1e-3 of
+# max |logit| is a quarter of one ulp), and two paths of one bf16 model
+# differ by about 2e-2 of max |logit| on the card (the attention phase's
+# bf16 prefill, flash_attention against blockwise_attention); 3e-2 is the
+# generate_vs_prefill gate of the attention models
+BF16_TIE_RTOL = 3e-2
 # score() against the engine path at batch 1: the same chunk and decode
 # steps, but the pool decodes 4 rows where the engine path decodes 1, so
 # cuBLAS may pick another GEMM and round otherwise (of max |logit|)
@@ -1578,12 +1593,13 @@ def sched_config(**kw):
                               "prefill_chunk": SCHED_CHUNK, **kw})
 
 
-def stream_gate(params, cfg, dev, prompts, mnts, done, want, what):
+def stream_gate(params, cfg, dev, prompts, mnts, done, want, what,
+                rtol=SCHED_TIE_RTOL):
     """Each completion in ``done`` (by request index) against the stream
     ``want[i]``: all ``mnts[i]`` tokens (reason 'length'), equal, or first
-    different at a near-tie of the two tokens' logits (within
-    SCHED_TIE_RTOL of max |logit|, one fp32 prefill of the prompt plus the
-    common prefix: cuBLAS may take another kernel at another batch width).
+    different at a near-tie of the two tokens' logits (within ``rtol`` of
+    max |logit|, one prefill of the prompt plus the common prefix in the
+    weights' dtype: cuBLAS may take another kernel at another batch width).
     Returns (streams equal exactly, near-ties)."""
     import numpy as np
     import torch
@@ -1606,9 +1622,9 @@ def stream_gate(params, cfg, dev, prompts, mnts, done, want, what):
         scale = float(lg.abs().max())
         ties.append({"request": i, "at": j, "tokens": [int(got[j]),
                      int(want[i][j])], "logit_gap": gap, "max_abs": scale})
-        check(gap <= SCHED_TIE_RTOL * scale, f"{what}, request {i}: differs "
+        check(gap <= rtol * scale, f"{what}, request {i}: differs "
               f"at token {j} ({int(got[j])} vs {int(want[i][j])}) with a "
-              f"logit gap {gap} > {SCHED_TIE_RTOL} * {scale}")
+              f"logit gap {gap} > {rtol} * {scale}")
     return exact, ties
 
 
@@ -2125,6 +2141,465 @@ def ring_phase(dev, seed) -> dict:
             "distinct_tokens": sorted({len(set(base[i].tokens.tolist()))
                                        for i in range(SCHED_REQS)}),
             "score_max_abs_diff": score_err, **paged_stats(st)}
+
+
+# the speculative phases: the scheduler trace above with speculate=SPEC_K
+# (prompt-lookup self-drafts) against speculate=0 in bf16, on contiguous
+# slots and on the paged pool at equal memory (576 blocks of 16). Gate:
+# each speculative stream equals the plain run's or first differs at a
+# bf16 near-tie (stream_gate at BF16_TIE_RTOL): verify runs the chunk path,
+# whose logits are not bitwise a decode step's (other GEMM and attention
+# shapes). At this random init the greedy streams repeat one token, so
+# prompt-lookup drafts are nearly always right: the acceptance rate
+# printed is an upper bound that says nothing about real text. Host syncs
+# are counted with torch.cuda.set_sync_debug_mode per decode tick and
+# chunk step.
+SPEC_K = 3
+SPEC_BLOCKS = SCHED_SLOTS * SCHED_MAX_LEN // PAGED_BLOCK
+# score() of RING_SCORE_LENS through the paged gemma3-12b scheduler with
+# and without speculation. The positions that chunks consume go through
+# the same chunk steps in both runs: gated at 1e-5 absolute (as the paged
+# score() gate above). The last (L-1) mod 256 positions come from verify
+# chunks of 4 in one run and decode steps in the other, whose bf16 GEMMs
+# and attention round otherwise: gated at SPEC_SCORE_ULPS bf16 ulps of the
+# largest |logit| over those positions (one forward of the prompt): 1e-5
+# cannot hold there in bf16, where one ulp of a logit near 16 is 0.0625.
+SPEC_SCORE_ATOL = 1e-5
+SPEC_SCORE_ULPS = 2
+# the obs loop's forced overload: the 8 requests at once on the paged
+# sub-phases' tight pool (what the first three prompts fill) under
+# preempt="swap"; a queue-wait rule at 0.1 ms (fire after 2 samples, clear
+# after 2) drives a BackpressureController with admit_cap=1
+OBS_QUEUE_WAIT_S = 1e-4
+# the online autotune: dtw.tile over tiles the DTW path takes, thunks that
+# submit 4 DTW pairs of each of DTW_LENGTHS through a KernelService of
+# their own; the incumbent is the service phase's tile (SERVICE_SEQ)
+RESWEEP_TILES = (32, 64, 128)
+
+
+class count_syncs:
+    """Context manager: the number of synchronizing CUDA operations (device
+    to host copies, synchronizes, .item()) torch reports while it is open,
+    through ``torch.cuda.set_sync_debug_mode("warn")``."""
+
+    def __enter__(self):
+        import torch
+        import warnings
+        self._catch = warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        self.count = 0
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+        self.count = sum("synchroniz" in str(w.message) for w in self._seen)
+        self._catch.__exit__(*exc)
+
+
+def count_tick_syncs(sched) -> dict:
+    """Wrap ``sched``'s decode (or verify) tick and chunk rounds so that
+    each counts its host syncs into the returned dict ("decode",
+    "chunk"), for the scheduler's lifetime."""
+    tally = {"decode": 0, "chunk": 0}
+
+    def counted(fn, key):
+        def run():
+            with count_syncs() as c:
+                fn()
+            tally[key] += c.count
+        return run
+
+    sched._decode_once = counted(sched._decode_once, "decode")
+    sched._prefill_chunks = counted(sched._prefill_chunks, "chunk")
+    return tally
+
+
+def spec_arm(params, cfg, prompts, mnts, counter, k, **kw) -> dict:
+    """One drive_scheduler run with speculate=k (``kw`` over sched_config,
+    no request cache), the launch count at 0 just before and read just
+    after, host syncs counted per decode tick and per chunk step:
+    (completions, numbers)."""
+    import torch
+    from repro_torch.serve import Scheduler
+    sched = Scheduler(cfg, params, sched_config(
+        cache_requests=False, speculate=k, **kw))
+    syncs = count_tick_syncs(sched)
+    torch.cuda.synchronize()
+    counter.launches = 0
+    t0 = time.perf_counter()
+    done = drive_scheduler(sched, prompts, mnts)
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    st = sched.stats()
+    toks = st["generated_tokens"]
+    ticks = st["decode_steps"]
+    out = {"speculate": k, "wall_s": wall, "generated_tokens": toks,
+           "tok_s": toks / wall, "decode_steps": ticks,
+           "chunk_steps": st["chunk_steps"], "steps": st["steps"],
+           "ttft_ms_p50": st["ttft_ms.p50"], "itl_ms_p50": st["itl_ms.p50"],
+           "host_syncs_decode": syncs["decode"],
+           "host_syncs_chunk": syncs["chunk"],
+           "host_syncs_per_decode_tick": syncs["decode"] / ticks,
+           "launches": launches,
+           **{key: st[key] for key in (
+               "spec.drafted_tokens", "spec.accepted_tokens",
+               "spec.rejected_tokens", "spec.rollbacks",
+               "spec.accept_len.count", "spec.accept_len.sum")}}
+    out["acceptance"] = (st["spec.accepted_tokens"]
+                         / st["spec.drafted_tokens"]
+                         if st["spec.drafted_tokens"] else None)
+    out["mean_accept_len"] = (st["spec.accept_len.sum"]
+                              / st["spec.accept_len.count"]
+                              if st["spec.accept_len.count"] else None)
+    if kw.get("allocator") == "paged":
+        out.update(paged_stats(st))
+    del sched
+    return done, out
+
+
+def spec_compare(params, cfg, dev, prompts, mnts, counter, what,
+                 **kw) -> dict:
+    """speculate=0 against speculate=SPEC_K on one backing (``kw``): both
+    runs' numbers, the stream gate, no flash_attention launch."""
+    plain_done, plain = spec_arm(params, cfg, prompts, mnts, counter, 0,
+                                 **kw)
+    done, spec = spec_arm(params, cfg, prompts, mnts, counter, SPEC_K, **kw)
+    exact, ties = stream_gate(params, cfg, dev, prompts, mnts, done,
+                              [plain_done[i].tokens
+                               for i in range(len(prompts))],
+                              f"{what} speculate={SPEC_K} against 0",
+                              rtol=BF16_TIE_RTOL)
+    name = counter.__name__.split('.')[-1]
+    for r in (plain, spec):
+        log(f"[spec] {cfg.name} bf16 {what} speculate={r['speculate']}: "
+            f"{r['generated_tokens']} tokens in {r['wall_s']:.3f} s "
+            f"({r['tok_s']:.1f} tok/s), TTFT p50 {r['ttft_ms_p50']:.1f} ms, "
+            f"ITL p50 {r['itl_ms_p50']:.2f} ms, {r['decode_steps']} decode "
+            f"ticks, {r['chunk_steps']} chunk steps; drafted "
+            f"{r['spec.drafted_tokens']}, accepted "
+            f"{r['spec.accepted_tokens']}, rejected "
+            f"{r['spec.rejected_tokens']}, rollbacks {r['spec.rollbacks']}, "
+            f"acceptance {r['acceptance']}, mean accept length "
+            f"{r['mean_accept_len']}; host syncs "
+            f"{r['host_syncs_per_decode_tick']:.2f} per decode tick, "
+            f"{r['host_syncs_chunk']} in chunk steps; "
+            f"{r['launches']} {name} launches")
+        check(r["launches"] == 0, f"{what} speculate={r['speculate']}: "
+              f"{r['launches']} {name} launches, expected 0")
+    log(f"[spec] {cfg.name} bf16 {what}: {exact} of {len(prompts)} "
+        f"speculative streams equal the plain run's exactly, near-ties at "
+        f"the first difference: {ties}; tok/s speculative / plain "
+        f"{spec['tok_s'] / plain['tok_s']:.3f}")
+    check(spec["spec.drafted_tokens"] > 0, f"{what}: no draft proposed")
+    return {"plain": plain, "spec": spec, "exact_streams": exact,
+            "near_ties": ties,
+            "tok_s_ratio": spec["tok_s"] / plain["tok_s"]}
+
+
+def spec_gemma2b(params, cfg, dev, seed, counter) -> dict:
+    """The bf16 gemma-2b weights: the scheduler trace with and without
+    speculation, on contiguous slots and on the paged pool."""
+    import torch
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    t0 = time.perf_counter()
+    out = {"k": SPEC_K,
+           "contiguous": spec_compare(params, cfg, dev, prompts, mnts,
+                                      counter, "contiguous"),
+           "paged": spec_compare(params, cfg, dev, prompts, mnts, counter,
+                                 "paged", allocator="paged",
+                                 block_size=PAGED_BLOCK,
+                                 num_blocks=SPEC_BLOCKS)}
+    out["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_ring(dev, seed) -> dict:
+    """gemma3-12b at full width, RING_LAYERS deep, bf16, on the paged pool
+    with a ring1024 group: the scheduler trace with and without
+    speculation, then score() of RING_SCORE_LENS (the 1,300-token prompt
+    wraps the rings) with and without it, gated at SPEC_SCORE_ATOL."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import Scheduler
+
+    cfg = dataclasses.replace(configs.get_config(RING_ARCH),
+                              num_layers=RING_LAYERS, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(seed + 95)
+    params = TT.init_model(cfg, g, dev)
+    torch.cuda.synchronize()
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    kw = dict(allocator="paged", block_size=PAGED_BLOCK)
+    out = spec_compare(params, cfg, dev, prompts, mnts, KF, "ring1024",
+                       **kw)
+    check(out["spec"]["page_groups"] == 2
+          and "ring1024_blocks_total" in out["spec"],
+          f"no ring1024 group: {out['spec']}")
+    rng = np.random.default_rng(seed + 85)
+    sp = [rng.integers(0, cfg.vocab, ln).astype(np.int32)
+          for ln in RING_SCORE_LENS]
+    lps = []
+    for k in (0, SPEC_K):
+        sched = Scheduler(cfg, params, sched_config(speculate=k, **kw))
+        rids = sched.score(sp)
+        sched.drain()
+        lps.append([sched.results[r].logprobs for r in rids])
+        del sched
+    out["score"] = score_split(params, cfg, dev, sp, *lps)
+    err = max(r["max_abs_diff"] for r in out["score"])
+    check(all(np.isfinite(x).all() for x in lps[1]), "non-finite scores")
+    for r in out["score"]:
+        ulp = 2.0 ** (math.floor(math.log2(r["ramp_max_abs_logit"])) - 7)
+        r["ramp_gate"] = SPEC_SCORE_ULPS * ulp
+        check(r["chunk_max_abs_diff"] <= SPEC_SCORE_ATOL
+              and r["ramp_max_abs_diff"] <= r["ramp_gate"],
+              f"speculative score() differs from the plain one: {r}")
+    out["score_max_abs_diff"] = err
+    out.update({"arch": RING_ARCH, "layers": cfg.num_layers,
+                "params": TT.param_count(params)})
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def score_split(params, cfg, dev, prompts, plain, spec) -> list:
+    """Per prompt, the largest |plain - speculative| logprob difference
+    over the chunk-consumed positions (the same chunk steps in both runs)
+    and over the ramp (decode steps against verify chunks), beside the
+    largest |logit| over the ramp positions from one forward of the
+    prompt."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as TT
+    out = []
+    for p, a, b in zip(prompts, plain, spec):
+        nc = SCHED_CHUNK * ((len(p) - 1) // SCHED_CHUNK)
+        with torch.inference_mode():
+            lg, _, _ = TT.apply_model(params, cfg, tokens=torch.as_tensor(
+                p[None, :-1].astype(np.int64), device=dev), mode="train")
+        d = np.abs(a - b)
+        r = {"prompt_len": len(p), "chunk_positions": nc,
+             "chunk_max_abs_diff": float(d[:nc].max()),
+             "ramp_max_abs_diff": float(d[nc:].max()),
+             "max_abs_diff": float(d.max()),
+             "ramp_max_abs_logit": float(lg[0, nc:].float().abs().max())}
+        out.append(r)
+        log(f"[spec] {cfg.name} {str(cfg.dtype).replace('torch.', '')} "
+            f"score() speculative against plain: {r}")
+    return out
+
+
+def obs_overload(params, cfg, dev, seed, counter) -> dict:
+    """The closed loop on the bf16 gemma-2b weights: the scheduler trace's
+    8 requests at once on the tight paged pool under preempt="swap",
+    uncontrolled and then with a Sampler -> SLOManager (queue wait) ->
+    BackpressureController(admit_cap=1) loop. Gate: the SLO fired and
+    cleared, the knobs were restored, and every controlled stream equals
+    the uncontrolled one or first differs at a near-tie."""
+    import torch
+    from repro_torch.obs import (REGISTRY, BackpressureController, Rule,
+                                 Sampler, SLOManager, Tracer, set_sampler)
+    from repro_torch.serve import Scheduler
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    tight = sum(-(-len(p) // PAGED_BLOCK) for p in prompts[:3])
+    runs = {}
+    for controlled in (False, True):
+        sched = Scheduler(cfg, params, sched_config(
+            cache_requests=False, allocator="paged", block_size=PAGED_BLOCK,
+            num_blocks=tight, preempt="swap"))
+        prev = None
+        if controlled:
+            smp = Sampler()
+            slo = SLOManager([Rule("queue_wait",
+                                   key="serve.queue_head_wait_s", op="<",
+                                   threshold=OBS_QUEUE_WAIT_S, fire_after=2,
+                                   clear_after=2)],
+                             tracer=Tracer(enabled=False))
+            ctrl = BackpressureController(sched, admit_cap=1,
+                                          preempt="swap",
+                                          tracer=Tracer(enabled=False))
+            smp.add_listener(slo.on_sample)
+            slo.subscribe(ctrl)
+            prev = set_sampler(smp)
+            fired0 = REGISTRY.counter("obs.slo.queue_wait.fired").value
+            cleared0 = REGISTRY.counter("obs.slo.queue_wait.cleared").value
+            engaged0 = REGISTRY.counter(
+                "obs.control.backpressure.engaged").value
+        torch.cuda.synchronize()
+        counter.launches = 0
+        t0 = time.perf_counter()
+        try:
+            rids = {sched.submit([p], max_new_tokens=n)[0]: i
+                    for i, (p, n) in enumerate(zip(prompts, mnts))}
+            done = {rids[c.rid]: c for c in sched.drain()}
+        finally:
+            if controlled:
+                set_sampler(prev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = sched.stats()
+        runs[controlled] = (done, {
+            "wall_s": wall, "decode_steps": st["decode_steps"],
+            "chunk_steps": st["chunk_steps"], "preempted": st["preempted"],
+            "swapped_out": st["swapped_out"],
+            "recomputed_decode_steps": st["recomputed_decode_steps"],
+            "ttft_ms_p50": st["ttft_ms.p50"],
+            "queue_wait_ms_p50": st["queue_wait_ms.p50"],
+            "itl_ms_p50": st["itl_ms.p50"], "launches": counter.launches})
+        if controlled:
+            fired = REGISTRY.counter("obs.slo.queue_wait.fired").value \
+                - fired0
+            cleared = REGISTRY.counter("obs.slo.queue_wait.cleared").value \
+                - cleared0
+            runs[True][1].update({
+                "slo_fired": fired, "slo_cleared": cleared,
+                "engaged": REGISTRY.counter(
+                    "obs.control.backpressure.engaged").value - engaged0,
+                "samples": smp.sample_count})
+            check(fired >= 1 and cleared == fired, f"queue-wait SLO fired "
+                  f"{fired} and cleared {cleared} times")
+            check(not slo.monitors["queue_wait"].firing
+                  and not ctrl.engaged and sched.admit_cap is None
+                  and sched.preempt_override is None,
+                  "the backpressure knobs were not restored")
+        del sched
+    exact, ties = stream_gate(params, cfg, dev, prompts, mnts, runs[True][0],
+                              [runs[False][0][i].tokens
+                               for i in range(len(prompts))],
+                              "backpressure against uncontrolled",
+                              rtol=BF16_TIE_RTOL)
+    out = {"tight_blocks": tight, "uncontrolled": runs[False][1],
+           "controlled": runs[True][1], "exact_streams": exact,
+           "near_ties": ties}
+    for name, r in (("uncontrolled", runs[False][1]),
+                    ("controlled", runs[True][1])):
+        log(f"[obs] {cfg.name} bf16 overload, {tight}-block pool, swap, "
+            f"{name}: {r}")
+        check(r["launches"] == 0, f"obs {name}: {r['launches']} launches")
+    log(f"[obs] backpressure: {exact} of {len(prompts)} streams equal the "
+        f"uncontrolled run's exactly, near-ties {ties}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def obs_autotune(dev, seed) -> dict:
+    """An AutotuneController on ``dtw.tile``: an incumbent measured at
+    SERVICE_SEQ, then one re-sweep over RESWEEP_TILES whose thunks submit
+    DTW requests through a KernelService at each tile (each submit launches
+    dp_wavefront once per bucket). The DTW adapter dispatches through no
+    Dispatcher bucket in either package, so the smoke feeds the
+    dispatch_imbalance rule the DTW submit's own first-use and steady host
+    ms under the rule's key names, at ratio 0 (any first-use cost breaches)
+    and fire_after 1: the rule fires on the first sample, and a second
+    sample finds the alert still firing and sweeps nothing. Gate:
+    one re-sweep; the value applied only on a measured improvement; the
+    results of the service with the chosen tile equal ops.dtw_tiled."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dtw_wavefront as KT
+    from repro_torch.kernels import ops
+    from repro_torch.obs import (AutotuneController, Registry, SLOManager,
+                                 Tracer, dispatch_imbalance_rule)
+    from repro_torch.runtime import KernelService, Request, ServiceConfig
+    from repro_torch.runtime.autotune import Autotuner
+
+    rng = np.random.default_rng(seed + 97)
+    reqs = []
+    for n in DTW_LENGTHS:
+        for _ in range(4):
+            walk = np.cumsum(rng.normal(size=(2, n)), axis=1)
+            reqs.append(Request("dtw", {"s": walk[0].astype(np.float32),
+                                        "r": walk[1].astype(np.float32)}))
+    times = {}
+
+    def make_thunk(tile):
+        svc = KernelService(ServiceConfig(seq_bucket=SERVICE_SEQ,
+                                          dtw_tile=int(tile),
+                                          sw_tile=int(tile)), device=dev)
+
+        def thunk():
+            t0 = time.perf_counter()
+            got = svc.submit(reqs)
+            times.setdefault(int(tile), []).append(
+                (time.perf_counter() - t0) * 1e6)
+            return got
+        return thunk
+
+    path = ROOT / "build" / "chip_smoke" / "autotune.json"
+    path.unlink(missing_ok=True)
+    tuner = Autotuner(str(path))
+    tuner.tune("dtw.tile", [SERVICE_SEQ], make_thunk, force=True)
+    first_us, steady = times[SERVICE_SEQ][0], times[SERVICE_SEQ][1:]
+    incumbent_us = tuner._cache["dtw.tile"]["us"]
+    times.clear()
+    applied = []
+    reg = Registry()
+    ctrl = AutotuneController(tuner, "dtw.tile", list(RESWEEP_TILES),
+                              make_thunk, apply=applied.append,
+                              cooldown_s=3600.0, registry=reg,
+                              tracer=Tracer(enabled=False))
+    rule = dispatch_imbalance_rule("dtw", ratio=0.0, min_execute_ms=0.0,
+                                   fire_after=1)
+    slo = SLOManager([rule], registry=reg, tracer=Tracer(enabled=False))
+    slo.subscribe(ctrl)
+    sample = {"runtime.dispatch.bucket.dtw.compile_ms": first_us / 1e3,
+              "runtime.dispatch.bucket.dtw.execute_ms": sum(steady) / 1e3}
+    w0 = KT.wavefront_launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events = slo.evaluate(sample, {})
+    slo.evaluate(sample, {})            # inside the cooldown: no sweep
+    wall = time.perf_counter() - t0
+    launches = KT.wavefront_launches - w0
+    cand_us = {t: float(np.median(v[1:])) for t, v in times.items()}
+    chosen = tuner.get("dtw.tile")
+    improved = bool(applied)
+    log(f"[obs] autotune dtw.tile: incumbent {SERVICE_SEQ} at "
+        f"{incumbent_us:.1f} us per submit (first use {first_us:.1f} us); "
+        f"rule events {events}; {ctrl.resweeps} re-sweep in {wall:.3f} s, "
+        f"candidates (median us per submit of {len(reqs)} DTW requests) "
+        f"{ {t: round(u, 1) for t, u in cand_us.items()} }; applied "
+        f"{applied}; {launches} dp_wavefront launches in the re-sweep")
+    check(ctrl.resweeps == 1 and events == ["dispatch_imbalance:fire"],
+          f"{ctrl.resweeps} re-sweeps, events {events}")
+    check(set(cand_us) == set(RESWEEP_TILES), f"candidates {cand_us}")
+    if improved:
+        check(applied == [chosen]
+              and tuner._cache["dtw.tile"]["us"] < 0.98 * incumbent_us,
+              f"applied {applied} without a measured improvement")
+    else:
+        check(chosen == SERVICE_SEQ, f"the knob moved to {chosen} without "
+              "an improvement")
+    # per candidate a warm-up submit and 3 timed ones, each one launch per
+    # bucket (one bucket per DTW length)
+    check(launches == len(RESWEEP_TILES) * (1 + 3) * len(DTW_LENGTHS),
+          f"{launches} dp_wavefront launches in the re-sweep")
+    svc = KernelService(ServiceConfig(seq_bucket=SERVICE_SEQ,
+                                      dtw_tile=int(chosen),
+                                      sw_tile=int(chosen)), device=dev)
+    err = 0.0
+    for req, res in zip(reqs, svc.submit(reqs)):
+        _, d = ops.dtw_tiled(torch.as_tensor(req.payload["s"], device=dev),
+                             torch.as_tensor(req.payload["r"], device=dev),
+                             int(chosen), int(chosen))
+        d = float(d)
+        err = max(err, abs(float(res["distance"]) - d))
+        check(abs(float(res["distance"]) - d) <= 1e-5 * abs(d),
+              f"dtw at tile {chosen}: {float(res['distance'])} != {d}")
+    log(f"[obs] service DTW at tile {chosen} against ops.dtw_tiled: max "
+        f"abs diff {err}")
+    return {"incumbent_tile": SERVICE_SEQ, "incumbent_us": incumbent_us,
+            "first_use_us": first_us, "candidates_us": cand_us,
+            "chosen": int(chosen), "improved": improved,
+            "resweeps": ctrl.resweeps, "resweep_wall_s": wall,
+            "dp_wavefront_launches": launches, "max_abs_err": err}
 
 
 def paged_rwkv(params, cfg, dev, seed, streams, counter) -> dict:
@@ -2659,6 +3134,11 @@ def attn_serving(dev, seed) -> dict:
     out["scheduler"] = sched
     out["launches"]["scheduler"] = sched["continuous"]["launches"]
     out["paged_occupancy"] = paged_occupancy_bf16(params, cfg, seed, KF)
+    t_spec = time.perf_counter()
+    out["spec"] = spec_gemma2b(params, cfg, dev, seed, KF)
+    out["obs_overload"] = obs_overload(params, cfg, dev, seed, KF)
+    log(f"[spec] gemma-2b speculation and overload sub-phases took "
+        f"{time.perf_counter() - t_spec:.1f} s")
     del params, res
     torch.cuda.empty_cache()
     return out
@@ -2831,6 +3311,14 @@ def main(argv=None) -> int:
     t_ring = time.perf_counter()
     line["ring_lm"] = ring_phase(dev, args.seed)
     log(f"[ring] phase took {time.perf_counter() - t_ring:.1f} s")
+
+    t_obs = time.perf_counter()
+    line["spec_ring_lm"] = spec_ring(dev, args.seed)
+    line["obs_autotune"] = obs_autotune(dev, args.seed)
+    by_name["dp_wavefront"]["resweep_launches"] = \
+        line["obs_autotune"]["dp_wavefront_launches"]
+    log(f"[obs] gemma3-12b speculation and autotune phases took "
+        f"{time.perf_counter() - t_obs:.1f} s")
     log(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))

@@ -7,8 +7,8 @@ The registry makes every number *readable* post-mortem; this module makes them
 consumable **while the system runs** — the paper's low-latency
 worker<->shared-resource feedback (Squire cores polling L2 state) applied
 one level up: the scheduler and dispatcher poll their own registry and
-feed SLO monitors and controllers (the reference's ``obs.slo`` and
-``obs.control``, not ported yet) on the same tick that did the work.
+feed SLO monitors (``obs.slo``) and controllers (``obs.control``) on the
+same tick that did the work.
 
 Design constraints, in order:
 

@@ -185,6 +185,38 @@ class Autotuner:
                  candidates=records)
         return best_v
 
+    def retune(self, key: str, candidates: Dict, make_thunk: Callable,
+               repeats: int = 3, min_improvement: float = 0.02):
+        """Bounded online re-sweep (the ``obs.control.AutotuneController``
+        entry point): re-measure the candidates and persist the winner only
+        if it beats the incumbent entry's recorded ``us`` by at least
+        ``min_improvement`` (relative), so a live knob never regresses on a
+        noisy re-measurement. Returns ``(value, improved)``: the knob to use
+        and whether it changed.
+
+        Unlike :meth:`tune`, a re-sweep whose every candidate fails does not
+        raise: the incumbent stays, and the failures are recorded in its
+        cache entry under ``"resweep_failed"``.
+        """
+        incumbent = self._cache.get(key)
+        best_v, best_us, failed, records = self._measure(
+            candidates, make_thunk, repeats)
+        if best_us == float("inf"):
+            if incumbent is not None:
+                incumbent = dict(incumbent)
+                incumbent["resweep_failed"] = failed
+                self._cache[key] = incumbent
+                self.save()
+                return incumbent["value"], False
+            return None, False
+        inc_us = incumbent.get("us") if incumbent else None
+        if incumbent is not None and inc_us is not None and \
+                best_us >= inc_us * (1.0 - min_improvement):
+            return incumbent["value"], False        # keep the incumbent
+        self.put(key, best_v, us=best_us, failed=failed or None,
+                 candidates=records)
+        return best_v, True
+
 
 # --------------------------------------------------------------------------
 # fig9 bridge: seed the cache from the design-space sweep's CSV rows

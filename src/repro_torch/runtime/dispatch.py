@@ -49,19 +49,21 @@ def _fn_name(fn) -> str:
 
 
 class _BucketStats:
-    """``<fn>[<bucket>]`` -> hit / miss counts and first / execute host-ms
-    totals. Registry provider ``runtime.dispatch.bucket``."""
+    """``<fn>[<bucket>]`` -> hit / miss counts and first-use / execute
+    host-ms totals. Registry provider ``runtime.dispatch.bucket``; the
+    first-use total keeps the reference's name, ``compile_ms``, which the
+    SLO rules read (``obs.control.dispatch_imbalance_rule``)."""
 
     def __init__(self):
         self.buckets: Dict[str, Dict[str, Any]] = {}
 
     def record(self, key: str, first: bool, ms: float):
         b = self.buckets.setdefault(
-            key, {"hits": 0, "misses": 0, "first_ms": 0.0,
+            key, {"hits": 0, "misses": 0, "compile_ms": 0.0,
                   "execute_ms": 0.0})
         if first:
             b["misses"] += 1
-            b["first_ms"] += ms
+            b["compile_ms"] += ms
         else:
             b["hits"] += 1
             b["execute_ms"] += ms

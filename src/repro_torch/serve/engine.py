@@ -18,8 +18,13 @@ pools read through page tables (``serve.paging``): each gathers a per-slot
 view of every paged layer, runs the plain step on the merged tree and
 writes the views back into the pools in place. The block-row functions
 reset, gather, upload and copy whole blocks of every pool (the device half
-of block mapping, swap and copy-on-write). The verify and sharded steps
-come with later slices (ROADMAP queue 1).
+of block mapping, swap and copy-on-write).
+
+The verify step (speculative decoding) teacher-forces a row's next token
+and k drafts through the chunk path, accepts the agreeing prefix, and
+rolls the rejected cache writes back from a snapshot of the written span;
+its paged form runs it on the gathered views. The sharded steps come with
+a later slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -213,6 +218,127 @@ def make_chunk_step(cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# speculative verify-accept: teacher-force k drafts through the chunk path,
+# accept the agreeing prefix, roll the cache back
+# ---------------------------------------------------------------------------
+
+def _ring_gather(leaf: Tensor, idx: Tensor) -> Tensor:
+    """Ring rows ``idx`` (B, S) of a cache leaf (P, B, slots, ...) along the
+    slot axis (index 2), modulo that leaf's view length: (P, B, S, ...)."""
+    rows = torch.arange(leaf.shape[1], device=leaf.device)[:, None]
+    return leaf[:, rows, idx % leaf.shape[2]]
+
+
+def _ring_scatter(leaf: Tensor, idx: Tensor, rows: Tensor) -> Tensor:
+    """Inverse of _ring_gather, in place: write ``rows`` (P, B, S, ...) back
+    at ring indices ``idx`` (B, S); returns ``leaf``. The indices of one row
+    are distinct (the scheduler keeps the verify span within the smallest
+    view length), and rows never share an index, so no element has two
+    writers and the scatter is deterministic on CUDA too."""
+    b = torch.arange(leaf.shape[1], device=leaf.device)[:, None]
+    leaf[:, b, idx % leaf.shape[2]] = rows.to(leaf.dtype)
+    return leaf
+
+
+def _snapshot_span(caches, idx: Tensor):
+    """Pre-step snapshot: the ring rows every attention leaf will (re)write
+    for absolute positions ``idx`` (B, S)."""
+    return {key: attention.KVCache(*(_ring_gather(x, idx) for x in e["attn"]))
+            for key, e in caches.items()}
+
+
+def _restore_span(caches, idx: Tensor, saved, limit: Tensor):
+    """Post-step rollback: keep the chunk's writes at absolute positions
+    <= limit[b] (the last accepted position) and restore the snapshot
+    everywhere else; inactive rows pass limit = -1 and are undone whole, so
+    the cache only ever holds committed entries. In place."""
+    keep = idx <= limit[:, None]                        # (B, S)
+
+    def mix(leaf, old):
+        new = _ring_gather(leaf, idx)
+        k = keep.reshape((1,) + keep.shape + (1,) * (new.dim() - 3))
+        return _ring_scatter(leaf, idx, torch.where(k, new, old))
+
+    for key, e in caches.items():
+        for leaf, old in zip(e["attn"], saved[key]):
+            mix(leaf, old)
+    return caches
+
+
+def make_verify_step(cfg: ModelConfig):
+    """verify(params, caches, tokens, pos, prompt_len, max_pos, score,
+    active, temps, top_ks, top_ps, generator) ->
+    (out_tok (B, S), accept_n (B,), logprobs (B, S), caches).
+
+    One speculative tick over the whole pool. tokens (B, S) carry [t, d_1
+    .. d_k] per row (S = k + 1): the true next token t at absolute position
+    pos[b], then k drafts. The chunk path teacher-forces all S positions;
+    the accept rule takes the longest prefix of drafts that agree with the
+    model's own greedy predictions. Rows with temps > 0 accept nothing and
+    sample their first token under their policy (top_ks / top_ps may be
+    None: disabled). Draft positions inside the prompt (< prompt_len, the
+    decode ramp) are teacher-forced and always accept; accepts are clamped
+    to max_pos[b] (the last position the row may commit) and, for score
+    rows, to k - 1, so that every prompt position's logprob comes out once.
+    Rejected (and inactive-row) cache writes are rolled back from a span
+    snapshot, so the pool never holds uncommitted state.
+
+    Needs an attention-only pattern (an SSM chunk scan cannot be rolled
+    back) and S <= the smallest attention view length (distinct ring rows
+    for the rollback scatter); the scheduler checks both.
+    """
+    for spec in cfg.pattern:
+        if spec.mixer != "attn" or spec.mlp == "rwkv_ffn":
+            raise ValueError(
+                "speculative verify needs an attention-only pattern with "
+                f"stateless MLPs; got mixer={spec.mixer!r} mlp={spec.mlp!r} "
+                "(SSM/rwkv_ffn chunk scans cannot be rolled back)")
+
+    @torch.inference_mode()
+    def verify(params, caches, tokens: Tensor, pos: Tensor,
+               prompt_len: Tensor, max_pos: Tensor, score: Tensor,
+               active: Tensor, temps: Tensor, top_ks: Optional[Tensor],
+               top_ps: Optional[Tensor],
+               generator: Optional[torch.Generator]):
+        s = tokens.shape[1]
+        k = s - 1
+        idx = pos[:, None] + torch.arange(s, device=pos.device)[None, :]
+        saved = _snapshot_span(caches, idx)
+        logits, _, caches = T.apply_model(
+            params, cfg, tokens=tokens, mode="decode", caches=caches,
+            pos_scalar=pos)
+        lg = logits.to(torch.float32)                   # (B, S, V)
+        greedy = torch.argmax(lg, dim=-1)
+        drafts = tokens[:, 1:]                          # (B, k)
+        # a draft at chunk slot i+1 sits at absolute position pos+i+1; ramp
+        # positions (< prompt_len) are the true prompt and always accept
+        forced = (idx[:, :k] + 1) < prompt_len[:, None]
+        match = (greedy[:, :k] == drafts) | forced
+        n = torch.cumprod(match.to(torch.int64), dim=-1).sum(dim=-1)
+        n = torch.where(temps > 0.0, 0, n)
+        n = torch.where(score, torch.clamp_max(n, k - 1), n)
+        n = torch.minimum(n, torch.clamp_min(max_pos - pos, 0))
+        n = torch.where(active, n, 0)
+        limit = torch.where(active, pos + n, -1)
+        caches = _restore_span(caches, idx, saved, limit)
+        # out_tok[:, i] = the prediction after chunk slot i; a sampled row
+        # replaces slot 0 with a sample under its policy (its only token
+        # this tick: its accept count is 0)
+        first = sample_token(lg[:, :1], generator, temps,
+                             0 if top_ks is None else top_ks,
+                             1.0 if top_ps is None else top_ps)
+        out_tok = greedy.clone()
+        out_tok[:, 0] = first
+        # logprobs[:, i] = log p(token fed at slot i+1 | prefix); the last
+        # slot scores the model's own bonus prediction
+        fed = torch.cat([drafts, out_tok[:, -1:]], dim=-1)
+        lp = torch.log_softmax(lg, dim=-1).gather(-1, fed[..., None])[..., 0]
+        return out_tok, n, lp, caches
+
+    return verify
+
+
+# ---------------------------------------------------------------------------
 # paged steps: dense per-slot leaves + flat block pools behind page tables
 # ---------------------------------------------------------------------------
 
@@ -278,6 +404,29 @@ def make_paged_chunk_step(cfg: ModelConfig):
         return logits, split_paged(caches, paged, rows)
 
     return chunk
+
+
+def make_paged_verify_step(cfg: ModelConfig):
+    """verify(params, dense, paged, rows, tokens, pos, prompt_len, max_pos,
+    score, active, temps, top_ks, top_ps, generator, block_size) ->
+    (out_tok, accept_n, logprobs, dense) over the whole pool (the
+    ``rows`` contract of make_paged_decode_step). The snapshot and rollback
+    act on the gathered views, so the writeback lands only committed rows
+    in the mapped blocks; rolled-back positions past a slot's mapping go
+    to the trash block, which is always read masked."""
+    step = make_verify_step(cfg)
+
+    @torch.inference_mode()
+    def verify(params, dense, paged, rows, tokens, pos, prompt_len, max_pos,
+               score, active, temps, top_ks, top_ps, generator,
+               block_size: int):
+        caches = merge_paged(dense, paged, rows, block_size)
+        out_tok, n, lp, caches = step(
+            params, caches, tokens, pos, prompt_len, max_pos, score, active,
+            temps, top_ks, top_ps, generator)
+        return out_tok, n, lp, split_paged(caches, paged, rows)
+
+    return verify
 
 
 @torch.inference_mode()

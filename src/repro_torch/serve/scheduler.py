@@ -57,9 +57,26 @@ when a Tracer is enabled, records ``admit`` / ``prefill`` / ``decode`` /
 track and ``decode-tick`` / ``prefill-chunk`` spans on the scheduler
 track.
 
-Speculative decoding (``speculate > 0``) and the sharded pool
-(``mesh_shards``) raise NotImplementedError after the reference's
-ValueError checks: they come with later slices (ROADMAP queue 1).
+``speculate=k`` replaces the one-token decode tick with a verify tick
+(attention-only models): each greedy slot drafts k tokens (the true prompt
+tokens through the decode ramp, a prompt-lookup self-draft past it, or a
+``draft_fn``), one chunk call over all k+1 positions verifies them, the
+longest prefix of drafts that agrees with the model's own greedy
+predictions is accepted, and the cache rows of rejected positions are
+rolled back. Sampled rows accept nothing and sample one token per tick;
+score rows ride the same verify path. The stream equals plain decode's
+where verify (chunk) logits equal step logits, which the reference's
+contract assumes; in neither package are they bitwise equal (a chunk
+attends over its own k and v, a step over them rounded in the bf16 cache,
+and on the card the two round their GEMMs otherwise), so greedy
+speculation can differ from ``speculate=0`` at near-ties. The backpressure
+knobs ``admit_cap`` and
+``preempt_override`` (``obs.control``) change admission timing and the
+preemption policy, never a greedy stream.
+
+The sharded pool (``mesh_shards``) raises NotImplementedError after the
+reference's ValueError checks: it comes with a later slice (ROADMAP queue
+1).
 """
 
 from __future__ import annotations
@@ -92,8 +109,11 @@ class SchedulerConfig:
     temperature: float = 0.0    # default sampling temperature (0 = greedy)
     top_k: int = 0              # default top-k filter (0 = disabled)
     top_p: float = 1.0          # default nucleus mass (1.0 = disabled)
-    # k > 0: speculative decoding (not ported yet; validated as in the
-    # reference, then NotImplementedError)
+    # k > 0: speculative decoding: draft k tokens per greedy slot per tick,
+    # verify them in ONE chunk call, accept the agreeing prefix and roll
+    # back the rest. Needs an attention-only pattern (SSM chunk scans cannot
+    # roll back) and k + 1 <= the smallest attention view length (the
+    # rollback scatter needs distinct ring rows).
     speculate: int = 0
     eos_token: Optional[int] = None
     cache_requests: bool = True
@@ -153,6 +173,8 @@ class _Slot:
     chunk_tokens: int = 0       # of which via chunk steps (not decode)
     out: List[int] = dataclasses.field(default_factory=list)
     logprobs: List[float] = dataclasses.field(default_factory=list)
+    accepted: int = 0           # speculative drafts accepted (this request)
+    drafted: int = 0            # speculative drafts proposed (this request)
     admit_seq: int = -1         # admission order: preemption evicts max
 
 
@@ -185,6 +207,10 @@ class Completion:
     # score() requests: log p(prompt[i] | prompt[:i]) for i = 1..L-1,
     # fp32 (L-1,); None for generate requests
     logprobs: Optional[np.ndarray] = None
+    # speculative-decoding effort for this request (0 when speculate=0 or
+    # served from cache): drafts accepted / proposed
+    accepted: int = 0
+    drafted: int = 0
 
     @property
     def latency(self) -> float:
@@ -285,6 +311,13 @@ _COUNTER_KEYS = (
     "chunk_steps", "generated_tokens", "prefill_tokens",
     "live_decode_slots", "preempted", "swapped_in", "swapped_out",
     "recomputed_decode_steps", "prefix_shared_tokens",
+    # sharded pools: queue heads migrated off a full shard (the sharded pool
+    # is not ported, so always 0; kept so the keys equal the reference's)
+    "steals",
+    # speculative decoding (all 0 when speculate=0; real drafts only: the
+    # teacher-forced ramp positions are not counted)
+    "spec.drafted_tokens", "spec.accepted_tokens", "spec.rejected_tokens",
+    "spec.rollbacks",
 )
 
 
@@ -302,10 +335,16 @@ class Scheduler:
 
     def __init__(self, cfg: ModelConfig, params,
                  sched: SchedulerConfig = SchedulerConfig(),
-                 tracer: Optional[obs_trace.Tracer] = None, mesh=None):
+                 tracer: Optional[obs_trace.Tracer] = None,
+                 draft_fn=None, mesh=None):
         self.cfg = cfg
         self.params = params
         self.sched = sched
+        # draft source for speculate=k: draft_fn(seq, need) -> >= need
+        # proposed next tokens given the committed sequence (prompt +
+        # generated). None = the built-in prompt-lookup self-draft. Drafts
+        # change only speed, never the stream (verify rejects disagreement)
+        self._draft_fn = draft_fn
         for field, allowed in (("allocator", ("contiguous", "paged")),
                                ("preempt", ("recompute", "swap")),
                                ("admission", ("optimistic", "reserved")),
@@ -344,14 +383,10 @@ class Scheduler:
                     f"{sched.speculate + 1} exceeds the smallest "
                     f"attention view length {min_view} (the rollback "
                     "scatter needs distinct ring rows)")
-        for what, on, item in (
-                ("speculate > 0", sched.speculate > 0, "speculation"),
-                ("mesh_shards", sched.mesh_shards is not None,
-                 "the sharded pool")):
-            if on:
-                raise NotImplementedError(
-                    f"SchedulerConfig {what} is not ported yet: it comes "
-                    f"with {item} (ROADMAP queue 1)")
+        if sched.mesh_shards is not None:
+            raise NotImplementedError(
+                "SchedulerConfig mesh_shards is not ported yet: it comes "
+                "with the sharded pool (ROADMAP queue 1)")
         # validates temperature/top_k/top_p ranges (ValueError on bad)
         engine.SamplingPolicy(sched.temperature, sched.top_k, sched.top_p)
         self.device = params.final_norm["scale"].device
@@ -383,7 +418,15 @@ class Scheduler:
         # per-request latency histograms (lifetime count/sum, windowed
         # p50/p95), fresh per scheduler
         self._lat = {name: obs_metrics.Histogram()
-                     for name in ("queue_wait_ms", "ttft_ms", "itl_ms")}
+                     for name in ("queue_wait_ms", "ttft_ms", "itl_ms",
+                                  "spec.accept_len")}
+        # closed-loop actuator knobs (obs.control.BackpressureController):
+        # admit_cap caps admissions per tick while an overload alert fires
+        # (None = uncapped FCFS); preempt_override replaces the preemption
+        # policy without touching the frozen config. Both change timing and
+        # admission only, never a greedy stream.
+        self.admit_cap: Optional[int] = None
+        self.preempt_override: Optional[str] = None
         self._tracer = tracer
         # slot -> (phase name, t0, rid): the open per-slot phase span,
         # closed at first token / preempt / retire (tracer enabled only)
@@ -394,6 +437,12 @@ class Scheduler:
     def tracer(self) -> obs_trace.Tracer:
         return self._tracer if self._tracer is not None \
             else obs_trace.get_tracer()
+
+    @property
+    def preempt_policy(self) -> str:
+        """The policy preempt-on-OOB uses this tick: the controller's
+        override when backpressure is engaged, else the configured one."""
+        return self.preempt_override or self.sched.preempt
 
     def _phase_begin(self, slot: int, name: str, rid: int):
         if self.tracer.enabled:
@@ -528,7 +577,8 @@ class Scheduler:
 
     def metrics(self) -> dict:
         """Registry 'serve' provider: every counter, queue/pool levels,
-        cache rates and the latency histograms (``<name>.<field>``).
+        cache rates, the latency histograms (``<name>.<field>``) and the
+        overload signal and actuator knobs the SLO/control loop reads.
         ``stats()`` = this + the slot pool's keys."""
         decode_steps = self.counters["decode_steps"]
         head_wait = (time.perf_counter() - self._tl[self._queue[0].rid]
@@ -544,7 +594,10 @@ class Scheduler:
                "mean_occupancy": round(
                    self.counters["live_decode_slots"] / decode_steps, 4)
                if decode_steps else 0.0,
-               "queue_head_wait_s": round(head_wait, 6)}
+               "queue_head_wait_s": round(head_wait, 6),
+               "admit_cap": -1 if self.admit_cap is None
+               else int(self.admit_cap),
+               "preempt_policy": self.preempt_policy}
         for name, h in self._lat.items():
             for k, v in h.summary().items():
                 out[f"{name}.{k}"] = v
@@ -558,11 +611,16 @@ class Scheduler:
     def _admit(self):
         """FCFS with head-of-line blocking: while the queue head cannot
         admit (no free slot, or, paged, not its blocks) nothing behind it
-        jumps the line."""
+        jumps the line. While backpressure is engaged, at most
+        ``admit_cap`` requests admit per tick (still in FCFS order)."""
         if self.sched.admit == "static" and self._by_slot:
             return      # static batching: wait for the whole batch
-        while self._queue and self._admit_head():
-            pass
+        admitted = 0
+        while self._queue and (self.admit_cap is None
+                               or admitted < self.admit_cap):
+            if not self._admit_head():
+                return
+            admitted += 1
 
     def _admit_head(self) -> bool:
         """Try to admit the queue head; True = admitted (and popped)."""
@@ -635,7 +693,7 @@ class Scheduler:
         self._phase_end(slot)
         tl = self._tl[st.rid]
         swapped = False
-        if self.sched.preempt == "swap":
+        if self.preempt_policy == "swap":
             swapped = self.slots.swap_out(slot) is not None
             if swapped:
                 self.counters["swapped_out"] += 1
@@ -660,13 +718,16 @@ class Scheduler:
         self.counters["preempted"] += 1
         tl.preemptions += 1
 
-    def _ensure_or_preempt(self, slot: int, upto_pos: int) -> bool:
+    def _ensure_or_preempt(self, slot: int, upto_pos: int,
+                           write_from: Optional[int] = None) -> bool:
         """Grow ``slot``'s storage to cover ``upto_pos``; on block
         exhaustion evict the youngest live slot and retry. The oldest live
         request is only ever evicted by itself (when nothing younger is
         left), and submit checked that it fits an empty pool, so the pool
-        always makes progress. Returns False iff ``slot`` was preempted."""
-        while not self.slots.ensure(slot, upto_pos):
+        always makes progress. ``write_from`` bounds the copy-on-write scan
+        (a verify tick writes a span, not one position). Returns False iff
+        ``slot`` was preempted."""
+        while not self.slots.ensure(slot, upto_pos, write_from=write_from):
             victim = max(self._by_slot,
                          key=lambda s: self._by_slot[s].admit_seq)
             self._preempt(victim)
@@ -727,6 +788,14 @@ class Scheduler:
     def _tensor(self, x: np.ndarray, dtype) -> Tensor:
         return torch.as_tensor(x).to(device=self.device, dtype=dtype)
 
+    def _max_commit(self, st: _Slot) -> int:
+        """Last cache position a verify tick may commit for ``st``:
+        generate rows never feed past the position producing their final
+        token (L + max_new - 2), score rows past the one producing the last
+        prompt logprob (L - 2)."""
+        ln = len(st.prompt)
+        return ln - 2 if st.mode == "score" else ln + st.max_new_tokens - 2
+
     def _first_token(self, slot: int, st: _Slot):
         """First generated token: TTFT stamp, the prefill -> decode phase
         flip, and publication of the prompt's chunk-consumed blocks to the
@@ -746,8 +815,12 @@ class Scheduler:
         """One decode over the FULL pool: per-slot tokens, positions and
         sampling policies. Free slots feed token 0 at position 0, a row in
         bounds of every cache leaf (ring writes go to pos % slots), and
-        their results are never read."""
+        their results are never read. With ``speculate=k`` the tick is a
+        verify tick instead (``_decode_speculative``)."""
         if not self._by_slot:
+            return
+        if self.sched.speculate:
+            self._decode_speculative(self.sched.speculate)
             return
         if self.slots.paged:
             # every live slot writes its cache at position ctx this tick:
@@ -816,6 +889,165 @@ class Scheduler:
             if eos or len(st.out) >= st.max_new_tokens:
                 self._retire(s, "eos" if eos else "length")
 
+    # -- speculative decoding ------------------------------------------------
+
+    @staticmethod
+    def _lookup_draft(seq: np.ndarray, need: int) -> List[int]:
+        """Prompt-lookup self-draft: find the most recent earlier
+        occurrence of the sequence's trailing 2-gram and copy the tokens
+        that followed it; repeat the last token when nothing matches."""
+        n = len(seq)
+        drafts: List[int] = []
+        if n >= 3:
+            a, b = int(seq[-2]), int(seq[-1])
+            for i in range(n - 3, -1, -1):
+                if int(seq[i]) == a and int(seq[i + 1]) == b:
+                    j = i + 2
+                    while len(drafts) < need and j < n:
+                        drafts.append(int(seq[j]))
+                        j += 1
+                    break
+        last = int(seq[-1]) if n else 0
+        while len(drafts) < need:
+            drafts.append(last)
+        return drafts
+
+    def _draft_tokens(self, st: _Slot, k: int) -> List[int]:
+        """k draft tokens for positions ctx+1..ctx+k: the true prompt
+        tokens through the teacher-forced ramp (the accepted span is written
+        to the cache), then ``draft_fn`` or the prompt-lookup self-draft."""
+        ln = len(st.prompt)
+        out = [int(t) for t in st.prompt[st.ctx + 1:min(st.ctx + 1 + k, ln)]]
+        need = k - len(out)
+        if need:
+            seq = (st.prompt if not st.out
+                   else np.concatenate([st.prompt,
+                                        np.asarray(st.out, np.int32)]))
+            if self._draft_fn is not None:
+                got = [int(t) for t in self._draft_fn(seq, need)][:need]
+                out.extend(got)
+                need -= len(got)
+            if need:                    # no draft_fn, or a short draft
+                out.extend(self._lookup_draft(seq, need))
+        return out
+
+    def _decode_speculative(self, k: int):
+        """One verify-accept tick over the FULL pool: feed k+1 tokens per
+        slot (the true next token and k drafts) through the chunk path,
+        accept each row's agreeing draft prefix, emit up to k+1 tokens.
+        Rejected cache writes were rolled back, so host state advances by
+        exactly what was committed. Three device-to-host reads per tick:
+        the tokens, the accept counts and the logprobs."""
+        if self.slots.paged:
+            for s in sorted(self._by_slot):
+                if s in self._by_slot:
+                    st = self._by_slot[s]
+                    # the span writes [ctx, ctx+k]; only positions that may
+                    # commit need mapped blocks (rolled-back writes past the
+                    # mapping land in the trash block, never read unmasked)
+                    upto = max(min(st.ctx + k, self._max_commit(st)),
+                               st.ctx)
+                    self._ensure_or_preempt(s, upto, write_from=st.ctx)
+            if not self._by_slot:
+                return
+        b = self.slots.num_slots
+        toks = np.zeros((b, k + 1), np.int64)
+        pos = np.zeros((b,), np.int64)
+        plen = np.ones((b,), np.int64)
+        maxp = np.zeros((b,), np.int64)
+        score_f = np.zeros((b,), bool)
+        active = np.zeros((b,), bool)
+        temps = np.zeros((b,), np.float32)
+        top_ks = np.zeros((b,), np.int64)
+        top_ps = np.ones((b,), np.float32)
+        for s, st in self._by_slot.items():
+            first = (st.prompt[st.ctx] if st.ctx < len(st.prompt)
+                     else st.out[-1])
+            toks[s] = [int(first)] + self._draft_tokens(st, k)
+            pos[s] = st.ctx
+            plen[s] = len(st.prompt)
+            maxp[s] = self._max_commit(st)
+            score_f[s] = st.mode == "score"
+            active[s] = True
+            temps[s] = st.policy.temperature
+            top_ks[s] = st.policy.top_k
+            top_ps[s] = st.policy.top_p
+        sampled = bool((temps > 0).any())
+        with self.tracer.span("decode-tick", "scheduler",
+                              live=len(self._by_slot), speculate=k):
+            out_tok, acc_n, lp = self.slots.run_verify(
+                self.params, self._tensor(toks, torch.int64),
+                self._tensor(pos, torch.int64),
+                self._tensor(plen, torch.int64),
+                self._tensor(maxp, torch.int64),
+                self._tensor(score_f, torch.bool),
+                self._tensor(active, torch.bool),
+                self._tensor(temps, torch.float32),
+                self._tensor(top_ks, torch.int64) if sampled else None,
+                self._tensor(top_ps, torch.float32) if sampled else None,
+                self._gen if sampled else None)
+            out_tok = out_tok.cpu().numpy()
+            acc_n = acc_n.cpu().numpy()
+            lp = lp.cpu().numpy()
+        self.counters["decode_steps"] += 1
+        self.counters["live_decode_slots"] += len(self._by_slot)
+
+        tick_accepts: List[int] = []
+        for s in sorted(self._by_slot):
+            st = self._by_slot[s]
+            n = int(acc_n[s])
+            adv = n + 1
+            base = st.ctx
+            ln = len(st.prompt)
+            if st.mode == "score":
+                # lp[i] scores the token fed at chunk slot i+1 (position
+                # base+i+1), a prompt token for every i <= n (score rows
+                # accept at most k-1)
+                st.logprobs.extend(float(lp[s, i]) for i in range(adv))
+                st.ctx = base + adv
+                if st.ctx >= ln - 1:
+                    self._retire(s, "score")
+                continue
+            if st.policy.greedy:
+                # real drafts only: ramp positions are teacher-forced prompt
+                # tokens, not speculation
+                forced = max(0, min(ln - (base + 1), k))
+                real_drafted = k - forced
+                real_accepted = max(n - forced, 0)
+                rejected = real_drafted - real_accepted
+                st.drafted += real_drafted
+                st.accepted += real_accepted
+                self.counters["spec.drafted_tokens"] += real_drafted
+                self.counters["spec.accepted_tokens"] += real_accepted
+                self.counters["spec.rejected_tokens"] += rejected
+                if rejected > 0:
+                    self.counters["spec.rollbacks"] += 1
+                if real_drafted > 0:
+                    self._lat["spec.accept_len"].observe(
+                        float(real_accepted))
+                    tick_accepts.append(real_accepted)
+            st.ctx = base + adv
+            for i in range(adv):
+                if base + i + 1 < ln:
+                    continue                        # still teacher-forcing
+                tok = int(out_tok[s, i])
+                st.out.append(tok)
+                self.counters["generated_tokens"] += 1
+                if len(st.out) == 1:
+                    self._first_token(s, st)
+                eos = (self.sched.eos_token is not None
+                       and tok == self.sched.eos_token)
+                if eos or len(st.out) >= st.max_new_tokens:
+                    # tokens past an EOS were committed to the cache, but
+                    # the slot retires here and release discards them
+                    self._retire(s, "eos" if eos else "length")
+                    break
+        if tick_accepts and self.tracer.enabled:
+            # Perfetto counter track: accepted draft length per tick
+            self.tracer.counter("spec.accept_len", "scheduler",
+                                mean=float(np.mean(tick_accepts)),
+                                max=float(np.max(tick_accepts)))
+
     def _retire(self, slot: int, reason: str):
         st = self._by_slot.pop(slot)
         self._phase_end(slot)
@@ -833,10 +1065,12 @@ class Scheduler:
             for rid in self._inflight.pop(key, ()):     # coalesced waiters
                 self._finish(rid, len(st.prompt), toks.copy(), "cached",
                              logprobs=None if lps is None else lps.copy())
-        self._finish(st.rid, len(st.prompt), toks, reason, logprobs=lps)
+        self._finish(st.rid, len(st.prompt), toks, reason, logprobs=lps,
+                     accepted=st.accepted, drafted=st.drafted)
 
     def _finish(self, rid: int, prompt_len: int, tokens: np.ndarray,
-                reason: str, logprobs: Optional[np.ndarray] = None):
+                reason: str, logprobs: Optional[np.ndarray] = None,
+                accepted: int = 0, drafted: int = 0):
         self.counters["completed"] += 1
         self._fresh.append(rid)
         tl = self._tl.pop(rid)
@@ -845,7 +1079,8 @@ class Scheduler:
             submit_t=tl.submit_t, finish_t=time.perf_counter(),
             admit_t=tl.admit_t, first_token_t=tl.first_token_t,
             swapped_s=tl.swapped_s, recomputed_steps=tl.recomputed_steps,
-            preemptions=tl.preemptions, logprobs=logprobs)
+            preemptions=tl.preemptions, logprobs=logprobs,
+            accepted=accepted, drafted=drafted)
         self.results[rid] = comp
         # ITL only means something for pool-served requests
         if tl.admit_t is not None and tl.first_token_t is not None:

@@ -135,6 +135,7 @@ class _ContiguousBacking:
         self.position_capacity = num_slots * cache_slots
         self._chunk = _pooled_chunk_step(cfg)
         self._decode = engine.make_slot_decode_step(cfg)
+        self._verify = None     # at first use: it refuses recurrent layers
 
     @property
     def total_rows(self) -> int:
@@ -191,6 +192,15 @@ class _ContiguousBacking:
             params, self.caches, tokens, pos, temps, generator, top_ks,
             top_ps)
         return nxt, logits
+
+    def run_verify(self, params, tokens, pos, prompt_len, max_pos, score,
+                   active, temps, top_ks, top_ps, generator):
+        if self._verify is None:
+            self._verify = engine.make_verify_step(self.cfg)
+        out_tok, n, lp, self.caches = self._verify(
+            params, self.caches, tokens, pos, prompt_len, max_pos, score,
+            active, temps, top_ks, top_ps, generator)
+        return out_tok, n, lp
 
     def stats(self) -> dict:
         return {"allocator": "contiguous"}
@@ -292,6 +302,7 @@ class _PagedBacking:
         self._rows_cache: Optional[Dict[str, Tensor]] = None
         self._chunk = engine.make_paged_chunk_step(cfg)
         self._decode = engine.make_paged_decode_step(cfg)
+        self._verify = None     # at first use: it refuses recurrent layers
 
     def _idx(self, idx: Sequence[int]) -> Tensor:
         return torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
@@ -636,6 +647,16 @@ class _PagedBacking:
             temps, generator, top_ks, top_ps, self.block_size)
         return nxt, logits
 
+    def run_verify(self, params, tokens, pos, prompt_len, max_pos, score,
+                   active, temps, top_ks, top_ps, generator):
+        if self._verify is None:
+            self._verify = engine.make_paged_verify_step(self.cfg)
+        out_tok, n, lp, self.dense = self._verify(
+            params, self.dense, self.paged, self._rows_all(), tokens, pos,
+            prompt_len, max_pos, score, active, temps, top_ks, top_ps,
+            generator, self.block_size)
+        return out_tok, n, lp
+
     def stats(self) -> dict:
         used = sum(g.pool.used_count for g in self.groups.values())
         total = sum(g.pool.num_blocks for g in self.groups.values())
@@ -886,6 +907,20 @@ class SlotManager:
         every slot is greedy."""
         return self.backing.run_decode(params, tokens, pos, temps,
                                        generator, top_ks, top_ps)
+
+    def run_verify(self, params, tokens: Tensor, pos: Tensor,
+                   prompt_len: Tensor, max_pos: Tensor, score: Tensor,
+                   active: Tensor, temps: Tensor,
+                   top_ks: Optional[Tensor], top_ps: Optional[Tensor],
+                   generator: Optional[torch.Generator]):
+        """ONE speculative verify-accept tick over the whole pool
+        (``engine.make_verify_step``'s contract): teacher-forces tokens
+        (B, k+1) and returns (out_tok (B, k+1), accept_n (B,), logprobs
+        (B, k+1)); rejected cache writes are rolled back, so the pool only
+        ever holds committed rows."""
+        return self.backing.run_verify(params, tokens, pos, prompt_len,
+                                       max_pos, score, active, temps,
+                                       top_ks, top_ps, generator)
 
     def metrics(self) -> dict:
         """Registry 'serve.slots' provider: pool levels (the paged backing's

@@ -270,16 +270,19 @@ def test_submit_validation(model):
         make(rwkv_cfg, rwkv_params, speculate=2)
     with pytest.raises(ValueError, match="mesh_shards"):
         Scheduler(tcfg, tparams, SchedulerConfig(), mesh=object())
-    # the paged allocator and prefix sharing are ported; speculation and
-    # the sharded pool raise with their ROADMAP pointer
+    # the paged allocator, prefix sharing and speculation are ported (a
+    # speculative scheduler serves a greedy request); the sharded pool
+    # raises with its ROADMAP pointer
     assert make(allocator="paged").slots.paged
     assert make(allocator="paged", prefix_sharing=True).slots.paged
-    for kw, item in ((dict(speculate=2), "speculation"),
-                     (dict(allocator="paged", mesh_shards=2),
-                      "the sharded pool")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{item} \\(ROADMAP queue 1\\)"):
-            make(**kw)
+    spec = make(speculate=2, num_slots=2, max_len=32, prefill_chunk=8)
+    (rid,) = spec.submit([good], max_new_tokens=4)
+    (done,) = spec.drain()
+    assert done.rid == rid and len(done.tokens) == 4
+    assert spec.counters["spec.drafted_tokens"] > 0
+    with pytest.raises(NotImplementedError,
+                       match="the sharded pool \\(ROADMAP queue 1\\)"):
+        make(allocator="paged", mesh_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         SlotManager(tcfg, 2, 16, paged=True, mesh_shards=2, device="cpu")
     assert SlotManager(tcfg, 2, 16, paged=True, device="cpu").paged
