@@ -6,9 +6,10 @@ version on the card, maps reads at the paper's Table IV lengths over a
 chain kernel and the one-launch SW wavefront (``dp_wavefront``), drives one
 mixed submit through ``KernelService``
 (map, seed, chain, sw, dtw, sort, scan) and holds every result to its
-direct call, sorts the sort traffic through the radix-rank kernel
-(``ops.radix_sort_chunks``), checks kernels-on against kernels-off, and
-times each kernel. Then the paper's last two kernels in plain torch: SpMV
+direct call, sorts the sort traffic through the radix kernels
+(``ops.radix_sort_chunks``: one histogram launch, then one rank-and-scatter
+launch per 8-bit digit), checks kernels-on against kernels-off, and times
+each kernel. Then the paper's last two kernels in plain torch: SpMV
 (``core.spmv``, two matrices of over 10^6 nonzeros) and Needleman-Wunsch
 (``core.align.nw_tiled`` at 2,048 x 2,048), each against an oracle. Then
 the LM paths at full width: RWKV-6 1.6B (``rwkv6-1.6b``) and gemma-2b
@@ -213,7 +214,7 @@ def check_kernels(dev) -> dict:
             check(close, f"dp_tile dtw {tr}x{tc} {lead} differs")
     errs["chain_scan"] = max(errs["chain_scan"], check_chain_edges(dev))
     errs["dp_wavefront"] = check_dp_wavefront(dev)
-    errs["radix_rank"] = check_radix_rank(dev)
+    errs.update(check_radix_rank(dev))
     errs["ssm_scan"] = max(check_ssm_scan(dev), check_ssm_edges(dev))
     errs["flash_attention"], errs["flash_shapes"] = check_flash_attention(dev)
     return errs
@@ -416,37 +417,90 @@ def check_dp_wavefront(dev) -> float:
     return err
 
 
-def check_radix_rank(dev) -> float:
-    """radix_rank against its plain version, exact, at every pass's shift,
-    for ragged and whole chunk lengths; radix_sort_chunks against
-    torch.sort(stable=True) along each chunk."""
+# chunk lengths about both tile sizes (1,024 and 2,048 keys a CTA)
+RADIX_CHUNK_LENS = (1, 255, 1023, 1024, 1025, 2047, 2048, 2049, 16_384,
+                    65_536)
+
+
+def radix_draw(n_chunks, clen, draw, g, dev):
+    """uint32 keys as int64 on the card: "repeated" (every third key equal
+    to its chunk's first, so ties and stability count) or "one_bucket"
+    (every key of a chunk equal: each digit falls in one bucket, and each
+    warp of a tile is one __match_any_sync group)."""
+    import torch
+    keys = torch.randint(0, 2**32, (n_chunks, clen), generator=g,
+                         device=dev, dtype=torch.int64)
+    if draw == "repeated":
+        keys[:, ::3] = keys[:, :1].clone()
+    else:
+        keys[:] = keys[:, :1].clone()
+    return keys
+
+
+def int_err(got, want) -> float:
+    """Largest absolute difference over pairs of tensors of one shape and
+    type (0.0 when every pair is equal bit for bit)."""
+    import torch
+    return max(0.0 if torch.equal(x, y)
+               else float((x.double() - y.double()).abs().max())
+               for x, y in zip(got, want))
+
+
+def check_radix_rank(dev) -> dict:
+    """The radix kernels against their plain versions, exact, at both tile
+    sizes, at RADIX_CHUNK_LENS, 1, 4 and 64 chunks and both draws:
+    radix_rank at every pass's shift; radix_hist; radix_pass for every
+    digit with no values (each key's index), int64 and float32 values; and
+    radix_sort_chunks against torch.sort(stable=True) along each chunk."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import radix_rank as KR
 
     g = torch.Generator(device=dev).manual_seed(2)
-    err = 0.0
-    for clen in (1, 255, 1024, 16_384):
-        keys = torch.randint(0, 2**32, (4, clen), generator=g, device=dev,
-                             dtype=torch.int64)
-        keys[:, ::3] = keys[:, :1].clone()    # repeated keys
-        for shift in (0, 8, 16, 24):
-            want_r, want_h = KR.radix_rank_plain(keys, shift)
-            ranks, hists = KR.radix_rank(keys, shift)
-            torch.cuda.synchronize()
-            err = max(err, float((ranks - want_r).abs().max()),
-                      float((hists - want_h).abs().max()))
-            same = torch.equal(ranks, want_r) and torch.equal(hists, want_h)
-            log(f"[kernels] radix_rank (4, {clen}) shift={shift}: "
-                f"exact={same}")
-            check(same, f"radix_rank (4, {clen}) shift {shift} differs")
-        sk, sv = ops.radix_sort_chunks(keys)
-        want_k, want_i = torch.sort(keys, dim=1, stable=True)
-        same = torch.equal(sk, want_k) and torch.equal(sv.long(), want_i)
-        log(f"[kernels] radix_sort_chunks (4, {clen}) == torch.sort(stable)"
-            f": {same}")
-        check(same, f"radix_sort_chunks (4, {clen}) differs from torch.sort")
-    return err
+    errs = dict.fromkeys(("radix_rank", "radix_hist", "radix_pass"), 0.0)
+    cases = 0
+    for clen in RADIX_CHUNK_LENS:
+        sorted_ok = True
+        for n_chunks in (1, 4, 64):
+            for draw in ("repeated", "one_bucket"):
+                keys = radix_draw(n_chunks, clen, draw, g, dev)
+                ranks = [KR.radix_rank_plain(keys, s) for s in (0, 8, 16, 24)]
+                hist = KR.radix_hist_plain(keys)
+                passes = [(p, v, KR.radix_pass_plain(keys, v, hist[1], p))
+                          for p in range(4)
+                          for v in (None,
+                                    torch.randint(-2**40, 2**40, keys.shape,
+                                                  generator=g, device=dev),
+                                    torch.randn(keys.shape, generator=g,
+                                                device=dev))]
+                for tile in KR.TILES:
+                    for shift, want in zip((0, 8, 16, 24), ranks):
+                        errs["radix_rank"] = max(errs["radix_rank"], int_err(
+                            KR.radix_rank(keys, shift, tile=tile), want))
+                    errs["radix_hist"] = max(errs["radix_hist"], int_err(
+                        KR.radix_hist(keys, tile=tile), hist))
+                    for p, v, want in passes:
+                        errs["radix_pass"] = max(errs["radix_pass"], int_err(
+                            KR.radix_pass(keys, v, hist[1], p, tile=tile),
+                            want))
+                    cases += 1
+                sk, sv = ops.radix_sort_chunks(keys)
+                want_k, want_i = torch.sort(keys, dim=1, stable=True)
+                sorted_ok &= (torch.equal(sk, want_k)
+                              and torch.equal(sv.long(), want_i))
+        torch.cuda.synchronize()
+        log(f"[kernels] radix chunk_len {clen} (1/4/64 chunks, 2 draws, "
+            f"tiles {KR.TILES}): max abs err rank {errs['radix_rank']}, "
+            f"hist {errs['radix_hist']}, pass {errs['radix_pass']}; "
+            f"radix_sort_chunks == torch.sort(stable): {sorted_ok}")
+        check(sorted_ok, f"radix_sort_chunks chunk_len {clen} differs from "
+              f"torch.sort(stable=True)")
+    log(f"[kernels] radix: {cases} (shape, draw, tile) cases, each with 4 "
+        f"shifts of radix_rank, radix_hist and 12 radix_pass calls")
+    for name, err in errs.items():
+        check(err == 0.0, f"{name} differs from its plain version (max abs "
+              f"err {err})")
+    return errs
 
 
 SCAN_SHAPES = ((128, 2048, 64, 64),   # the prefill: batch 4 x 32 heads
@@ -920,8 +974,9 @@ def alg1_sort(keys, n_chunks):
 
 
 def rank_path(sort_traffic, dev):
-    """The sort traffic through the radix-rank kernel: each request's keys
-    as 4 chunks through ops.radix_sort_chunks, the chunks merged with
+    """The sort traffic through the radix kernels: each request's keys as 4
+    chunks through ops.radix_sort_chunks (one radix_hist and 4 radix_pass
+    launches), the chunks merged with
     core.sort.merge_sorted, held exactly to the service's sort. Then, for
     timing, 1,048,576 keys in 64 chunks the same way, against
     torch.sort(stable=True)."""
@@ -932,12 +987,13 @@ def rank_path(sort_traffic, dev):
     keys = [torch.as_tensor(p["keys"].astype(np.int64), device=dev)
             for p, _ in sort_traffic]
     torch.cuda.synchronize()
-    KR.launches = 0
+    KR.launches = KR.hist_launches = KR.pass_launches = 0
     t0 = time.perf_counter()
     merged = [alg1_sort(k, SORT_CHUNKS) for k in keys]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = KR.launches
+    launches = {"radix_rank": KR.launches, "radix_hist": KR.hist_launches,
+                "radix_pass": KR.pass_launches}
     for (mk, mv), (_, res) in zip(merged, sort_traffic):
         check(np.array_equal(mk.cpu().numpy(), res["keys"])
               and np.array_equal(mv.cpu().numpy(), res["vals"]),
@@ -945,10 +1001,12 @@ def rank_path(sort_traffic, dev):
               "sort")
     log(f"[rank] {len(keys)} sort requests of {BULK_N} keys as "
         f"{SORT_CHUNKS} chunks through radix_sort_chunks + merge_sorted: "
-        f"equal to the service's sort; {launches} radix_rank launches, "
-        f"{ms:.3f} ms host")
-    check(launches == len(keys) * 4,
-          f"radix_rank launched {launches} times, expected {len(keys) * 4}")
+        f"equal to the service's sort; launches {launches}, {ms:.3f} ms "
+        f"host")
+    want = {"radix_rank": 0, "radix_hist": len(keys),
+            "radix_pass": 4 * len(keys)}
+    check(launches == want, f"radix launches {launches}, expected {want} "
+          f"(one histogram and 4 passes per chunked sort)")
 
     g = torch.Generator(device=dev).manual_seed(5)
     big = torch.randint(0, 2**32, (64 * BULK_N // SORT_CHUNKS,),
@@ -966,48 +1024,169 @@ def rank_path(sort_traffic, dev):
             "torch_sort_1m_ms": lib_ms}
 
 
-def radix_rank_entry(dev, rank_info, errs):
-    """Times of radix_rank at the path's shape (4, 16384) and at 1,048,576
-    keys in 64 chunks, beside its bound, its plain version and torch.sort."""
+def kernel_device_us(fn, name, n=20):
+    """Mean device microseconds of the kernels whose name holds ``name``
+    over n calls of fn, from the profiler."""
+    _, spans = profiled(lambda: [fn() for _ in range(n)])
+    times = [e - st for st, e, nm in spans if name in nm]
+    check(bool(times), f"the profiler saw no {name} in {n} calls")
+    return statistics.mean(times)
+
+
+def radix_times(dev, n_chunks, g) -> dict:
+    """At (n_chunks, 16384): each radix kernel's ms (CUDA events), device
+    us (profiler), plain ms and bound; radix_sort_chunks' ms, its device
+    span and kernel sequence (one histogram, then 4 passes, nothing else),
+    beside torch.sort(stable=True)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import radix_rank as KR
 
+    lc = BULK_N // SORT_CHUNKS
+    keys = torch.randint(0, 2**32, (n_chunks, lc), generator=g, device=dev,
+                         dtype=torch.int64)
+    vals = torch.randint(0, 2**31, (n_chunks, lc), generator=g, device=dev,
+                         dtype=torch.int32)
+    n = keys.numel()
+    _, starts = KR.radix_hist(keys)
+    r = {"shape": [n_chunks, lc], "tile": KR.tile_for(n_chunks, lc)}
+
+    rank = lambda: KR.radix_rank(keys, 8)  # noqa: E731
+    rank()
+    r["rank_ctas"] = KR.last_grid
+    r["rank_ms"] = time_cuda(rank, reps=50)
+    r["rank_device_us"] = kernel_device_us(rank, "rank_tiles_kernel")
+    r["rank_device_us_by_tile"] = {
+        t: kernel_device_us(lambda: KR.radix_rank(keys, 8, tile=t),
+                            "rank_tiles_kernel") for t in KR.TILES}
+    r["rank_plain_ms"] = time_cuda(lambda: KR.radix_rank_plain(keys, 8),
+                                   reps=5)
+    r["rank_bound"] = bound(n * 8 + n * 4 + n_chunks * 256 * 4, 2 * n)
+
+    hist = lambda: KR.radix_hist(keys)  # noqa: E731
+    r["hist_ms"] = time_cuda(hist, reps=50)
+    r["hist_device_us"] = kernel_device_us(hist, "radix_hist_kernel")
+    r["hist_plain_ms"] = time_cuda(lambda: KR.radix_hist_plain(keys), reps=5)
+    r["hist_bound"] = bound(n * 8 + 2 * n_chunks * 4 * 256 * 4, 4 * n)
+
+    # a middle pass: int32 values in, keys and values out
+    one = lambda: KR.radix_pass(keys, vals, starts, 1)  # noqa: E731
+    r["pass_ms"] = time_cuda(one, reps=50)
+    r["pass_device_us"] = kernel_device_us(one, "rank_tiles_kernel")
+    r["pass_device_us_by_tile"] = {
+        t: kernel_device_us(lambda: KR.radix_pass(keys, vals, starts, 1,
+                                                  tile=t),
+                            "rank_tiles_kernel") for t in KR.TILES}
+    r["pass_plain_ms"] = time_cuda(
+        lambda: KR.radix_pass_plain(keys, vals, starts, 1), reps=5)
+    r["pass_bound"] = bound(n * 24 + n_chunks * 4 * 256 * 4, 2 * n)
+
+    sort = lambda: ops.radix_sort_chunks(keys)  # noqa: E731
+    r["sort_ms"] = time_cuda(sort, reps=20)
+    # 5 sorts in one profiler window. The profiler may miss an event now
+    # and then, so: every event it saw is a histogram or a pass kernel,
+    # at least one call shows whole (histogram, then 4 passes), and the
+    # times come from the whole calls.
+    spans = profiled(lambda: [sort() for _ in range(5)])[1]
+    kinds = ["hist" if "radix_hist_kernel" in nm
+             else "pass" if "rank_tiles_kernel" in nm else nm
+             for _, _, nm in spans]
+    calls = []
+    for span, kind in zip(spans, kinds):
+        if kind == "hist" or not calls:
+            calls.append([])
+        calls[-1].append((span, kind))
+    whole = [[sp for sp, _ in c] for c in calls
+             if [k for _, k in c] == ["hist"] + ["pass"] * 4]
+    check(set(kinds) <= {"hist", "pass"} and whole,
+          f"radix_sort_chunks ({n_chunks}, {lc}) ran {kinds} on the card: "
+          f"not a histogram and 4 passes a call, and nothing else")
+    kinds = ["hist"] + ["pass"] * 4
+    r["sort_events_seen"] = [len(spans), 25]
+    r["sort_device_us"] = statistics.median(busy_us(c) for c in whole)
+    r["sort_span_us"] = statistics.median(c[-1][1] - c[0][0] for c in whole)
+    r["sort_plain_ms"] = time_cuda(
+        lambda: KR.radix_sort_chunks_plain(keys), reps=2, rounds=3)
+    # the function reads the keys and writes keys and int32 indices once
+    r["sort_bound"] = bound(n * (8 + 8 + 4), 2 * 5 * n)
+    # the passes' own traffic: 8 bytes a key for the histogram, 24 a pass
+    r["sort_lsd_bound_ms"] = n * (8 + 4 * 24) / HBM_BYTES_PER_S * 1e3
+    lib = lambda: torch.sort(keys, dim=1, stable=True)  # noqa: E731
+    r["torch_sort_ms"] = time_cuda(lib, reps=20)
+    r["torch_sort_device_us"] = busy_us(
+        profiled(lambda: [lib() for _ in range(5)])[1]) / 5
+    log(f"[time] radix ({n_chunks}, {lc}), tile {r['tile']}: radix_rank "
+        f"{r['rank_ms']:.4f} ms ({r['rank_device_us']:.2f} us device, "
+        f"{r['rank_ctas']} CTAs; by tile {r['rank_device_us_by_tile']}), "
+        f"plain {r['rank_plain_ms']:.3f} ms, bound "
+        f"{r['rank_bound'][0]:.6f} ms; radix_hist {r['hist_ms']:.4f} ms "
+        f"({r['hist_device_us']:.2f} us device), bound "
+        f"{r['hist_bound'][0]:.6f} ms; radix_pass {r['pass_ms']:.4f} ms "
+        f"({r['pass_device_us']:.2f} us device; by tile "
+        f"{r['pass_device_us_by_tile']}), bound {r['pass_bound'][0]:.6f} ms")
+    log(f"[time] radix_sort_chunks ({n_chunks}, {lc}): {r['sort_ms']:.4f} ms "
+        f"({r['sort_device_us']:.2f} us device busy, "
+        f"{r['sort_span_us']:.2f} us from the histogram's start to the last "
+        f"pass's end; kernels {kinds}, {len(whole)} of 5 calls seen whole, "
+        f"no other kernel), plain {r['sort_plain_ms']:.3f} ms, bound "
+        f"{r['sort_bound'][0]:.6f} ms (LSD traffic "
+        f"{r['sort_lsd_bound_ms']:.6f} ms); torch.sort(stable) "
+        f"{r['torch_sort_ms']:.4f} ms ({r['torch_sort_device_us']:.2f} us "
+        f"device busy)")
+    return r
+
+
+def radix_entries(dev, rank_info, errs) -> list:
+    """The kernel-line entries of radix_rank, radix_hist, radix_pass and
+    radix_sort_chunks at the rank path's shape (4, 16384), each with its
+    numbers at 1,048,576 keys in 64 chunks beside."""
+    import torch
     g = torch.Generator(device=dev).manual_seed(4)
-    out = {}
-    for n_chunks in (SORT_CHUNKS, 64):
-        lc = BULK_N // SORT_CHUNKS
-        keys = torch.randint(0, 2**32, (n_chunks, lc), generator=g,
-                             device=dev, dtype=torch.int64)
-        ms = time_cuda(lambda: KR.radix_rank(keys, 8), reps=50)
-        plain = time_cuda(lambda: KR.radix_rank_plain(keys, 8), reps=5)
-        lib = time_cuda(lambda: torch.sort(keys, dim=1, stable=True),
-                        reps=20)
-        chunks_ms = time_cuda(lambda: ops.radix_sort_chunks(keys), reps=20)
-        n = keys.numel()
-        b_ms, b_by = bound(n * 8 + n * 4 + n_chunks * 256 * 4, 2 * n)
-        out[n_chunks] = (ms, plain, lib, chunks_ms, b_ms, b_by)
-        log(f"[time] radix_rank ({n_chunks}, {lc}): kernel {ms:.4f} ms, "
-            f"plain {plain:.3f} ms, bound {b_ms:.6f} ms ({b_by}); "
-            f"radix_sort_chunks {chunks_ms:.4f} ms, torch.sort(stable) "
-            f"{lib:.4f} ms")
-    ms, plain, lib, chunks_ms, b_ms, b_by = out[SORT_CHUNKS]
-    big = out[64]
-    return {"name": "radix_rank", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/radix_rank.cu",
-            "replaces": "src/repro/kernels/radix_rank.py:57",
-            "launches": rank_info["launches"],
-            "max_abs_err": errs["radix_rank"], "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "library": "torch.sort(keys, dim=1, stable=True)",
-            "shape": [SORT_CHUNKS, BULK_N // SORT_CHUNKS],
-            "radix_sort_chunks_ms": chunks_ms,
-            "alg1_1m_ms": rank_info["alg1_1m_ms"],
-            "torch_sort_1m_ms": rank_info["torch_sort_1m_ms"],
-            "at_64_chunks": {"ms": big[0], "plain_ms": big[1],
-                             "library_ms": big[2],
-                             "radix_sort_chunks_ms": big[3],
-                             "bound_ms": big[4]}}
+    at = {n: radix_times(dev, n, g) for n in (SORT_CHUNKS, 64)}
+    src = "src/repro_torch/kernels/csrc/radix_rank.cu"
+    tpu = "src/repro/kernels/radix_rank.py:57"
+    launches = rank_info["launches"]
+
+    def entry(name, key, launch_key, err, library):
+        out = {}
+        for n, r in at.items():
+            out[n] = {"ms": r[f"{key}_ms"],
+                      "device_us": r[f"{key}_device_us"],
+                      "plain_ms": r[f"{key}_plain_ms"],
+                      "bound_ms": r[f"{key}_bound"][0],
+                      "bound_by": r[f"{key}_bound"][1],
+                      "library_ms": r["torch_sort_ms"] if library else None,
+                      "shape": r["shape"], "tile": r["tile"]}
+        e = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+             "launches": launches[launch_key], "max_abs_err": err,
+             **out[SORT_CHUNKS], "at_64_chunks": out[64]}
+        if library:
+            e["library"] = "torch.sort(keys, dim=1, stable=True)"
+        return e
+
+    rank = entry("radix_rank", "rank", "radix_rank", errs["radix_rank"], True)
+    hist = entry("radix_hist", "hist", "radix_hist", errs["radix_hist"],
+                 False)
+    one = entry("radix_pass", "pass", "radix_pass", errs["radix_pass"],
+                False)
+    sort = entry("radix_sort_chunks", "sort", "radix_pass",
+                 max(errs["radix_hist"], errs["radix_pass"]), True)
+    sort["launches"] = launches["radix_hist"] + launches["radix_pass"]
+    sort["kernels"] = "radix_hist, then radix_pass per 8-bit digit"
+    for n, r in at.items():
+        part = sort if n == SORT_CHUNKS else sort["at_64_chunks"]
+        part["lsd_bound_ms"] = r["sort_lsd_bound_ms"]
+        part["span_us"] = r["sort_span_us"]
+        part["torch_sort_device_us"] = r["torch_sort_device_us"]
+        part["events_seen"] = r["sort_events_seen"]
+        rpart = rank if n == SORT_CHUNKS else rank["at_64_chunks"]
+        rpart["ctas"] = r["rank_ctas"]
+        rpart["device_us_by_tile"] = r["rank_device_us_by_tile"]
+        opart = one if n == SORT_CHUNKS else one["at_64_chunks"]
+        opart["device_us_by_tile"] = r["pass_device_us_by_tile"]
+    sort["alg1_1m_ms"] = rank_info["alg1_1m_ms"]
+    sort["torch_sort_1m_ms"] = rank_info["torch_sort_1m_ms"]
+    return [rank, hist, one, sort]
 
 
 # --------------------------------------------------------------------------
@@ -3274,7 +3453,7 @@ def main(argv=None) -> int:
     log(f"[paper] phase took {time.perf_counter() - t_paper:.1f} s")
 
     line = kernel_line(dev, launches, errs, max_n, max_align)
-    line["kernels"].append(radix_rank_entry(dev, rank_info, errs))
+    line["kernels"].extend(radix_entries(dev, rank_info, errs))
     by_name = {k["name"]: k for k in line["kernels"]}
     for name in ("chain_scan", "dp_wavefront", "dp_tile"):
         by_name[name]["service_launches"] = svc_info["launches"][name]

@@ -5,8 +5,8 @@ They plug the kernels into the core engines: ``chain_scan`` /
 into ``core.wavefront`` through ``make_sw_tile_fn`` and ``dtw_tile_fn``,
 ``dp_wavefront`` (the whole tile wavefront in one launch) through
 ``make_sw_wavefront_fn`` and ``dtw_wavefront_fn`` into ``sw_tiled`` and
-``dtw_tiled``, ``radix_rank`` into the chunk-parallel
-LSD passes of ``radix_sort_chunks``, ``ssm_scan`` (the WKV scan) behind
+``dtw_tiled``, ``radix_hist`` and ``radix_pass`` (one launch per LSD
+pass) behind ``radix_sort_chunks``, ``ssm_scan`` (the WKV scan) behind
 the reference's T-padding wrapper, and ``flash_attention`` in the model's
 (B, S, heads, hd) layout.
 The kernel emits its tile row-major, so no diagonal-major relayout follows,
@@ -28,7 +28,7 @@ from repro_torch.kernels.chain_scan import chain_scan  # noqa: F401
 from repro_torch.kernels.dtw_wavefront import dp_tile
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_attention
-from repro_torch.kernels.radix_rank import buckets, radix_rank
+from repro_torch.kernels.radix_rank import radix_sort_chunks  # noqa: F401
 from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_scan
 
 
@@ -104,28 +104,3 @@ def dtw_tiled(s, r, tile_r: int = 128, tile_c: int = 128, **kw):
     """End-to-end DTW: the tile wavefront in one ``dp_wavefront`` launch."""
     return cdtw.dtw_tiled(s, r, tile_r, tile_c,
                           wavefront_fn=dtw_wavefront_fn, **kw)
-
-
-def radix_sort_chunks(keys, vals=None, key_bits: int = 32):
-    """Chunk-parallel LSD radix sort on the rank kernel (paper Alg. 1).
-
-    keys: (n_chunks, chunk_len) unsigned 32-bit values carried as int64;
-    each row comes back sorted, stably, with ``vals`` (default: each key's
-    index in its chunk, int32) carried along. The caller merges the chunks
-    (``core.sort.merge_sorted``). Per 8-bit pass the kernel ranks the keys;
-    the exclusive prefix of the histograms, the gather of each key's bucket
-    start and the scatter are plain torch, as the reference does them
-    outside its kernel.
-    """
-    n_chunks, clen = keys.shape
-    if vals is None:
-        vals = torch.arange(clen, dtype=torch.int32,
-                            device=keys.device).expand(n_chunks, clen)
-    for shift in range(0, key_bits, 8):
-        ranks, hists = radix_rank(keys, shift)
-        starts = torch.cumsum(hists, dim=1) - hists       # exclusive
-        pos = (torch.take_along_dim(starts, buckets(keys, shift), dim=1)
-               + ranks).to(torch.int64)
-        keys = torch.empty_like(keys).scatter_(1, pos, keys)
-        vals = torch.empty_like(vals).scatter_(1, pos, vals)
-    return keys, vals

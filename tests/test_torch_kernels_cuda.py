@@ -335,12 +335,110 @@ def test_radix_sort_chunks_on_the_card_is_a_stable_sort(cuda):
     keys = torch.randint(0, 2**32, (4, 16384), generator=g, device=cuda,
                          dtype=torch.int64)
     keys[:, ::5] = keys[:, :1].clone()
-    before = KR.launches
+    before = (KR.launches, KR.hist_launches, KR.pass_launches)
     sk, sv = ops.radix_sort_chunks(keys)
-    assert KR.launches == before + 4            # one rank pass per byte
+    # one histogram launch, then one pass launch per byte; no rank launch
+    assert (KR.launches, KR.hist_launches, KR.pass_launches) == (
+        before[0], before[1] + 1, before[2] + 4)
     want_k, want_i = torch.sort(keys, dim=1, stable=True)
     assert torch.equal(sk, want_k)
     assert torch.equal(sv.to(torch.int64), want_i)
+
+
+def _radix_keys(n_chunks, clen, draw, seed):
+    """uint32 keys as int64: every third key equal to its chunk's first, or
+    every key of a chunk equal (one bucket for every digit)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2**32, (n_chunks, clen), dtype=np.uint32)
+    if draw == "repeated":
+        keys[:, ::3] = keys[:, :1]
+    else:
+        keys[:] = keys[:, :1]
+    return torch.as_tensor(keys.astype(np.int64))
+
+
+_EDGE_LENS = (1, 255, 1023, 1024, 1025, 2047, 2048, 2049, 3 * 2048 + 7,
+              16384)
+
+
+@pytest.mark.parametrize("draw", ["repeated", "one_bucket"])
+@pytest.mark.parametrize("tile", KR.TILES)
+def test_radix_rank_kernel_exact_about_the_tile(cuda, tile, draw):
+    """T - 1, T, T + 1 (and more) keys a chunk at each tile size T: ragged
+    last tiles, chunks shorter than a tile, look-back across tiles."""
+    for clen in (1, tile - 1, tile, tile + 1, 3 * tile + 7):
+        for n_chunks in (1, 4):
+            kt = _radix_keys(n_chunks, clen, draw, clen)
+            for shift in (0, 8, 16, 24):
+                want_r, want_h = KR.radix_rank_plain(kt, shift)
+                before = KR.launches
+                ranks, hists = KR.radix_rank(kt.to(cuda), shift, tile=tile)
+                torch.cuda.synchronize()
+                assert KR.launches == before + 1
+                assert KR.last_grid == n_chunks * -(-clen // tile)
+                assert torch.equal(ranks.cpu(), want_r)
+                assert torch.equal(hists.cpu(), want_h)
+
+
+@pytest.mark.parametrize("draw", ["repeated", "one_bucket"])
+@pytest.mark.parametrize("clen", _EDGE_LENS)
+def test_radix_hist_and_pass_kernels_exact(cuda, clen, draw):
+    """The histogram and every pass (values absent, int32, float64) against
+    their plain versions at both tile sizes, 1 and 4 chunks."""
+    for n_chunks in (1, 4):
+        kt = _radix_keys(n_chunks, clen, draw, clen + n_chunks)
+        hist = KR.radix_hist_plain(kt)
+        rng = np.random.default_rng(clen)
+        vals = (None,
+                torch.as_tensor(rng.integers(-9, 9, kt.shape, np.int32)),
+                torch.as_tensor(rng.normal(size=kt.shape)))
+        keys, starts = kt.to(cuda), hist[1].to(cuda)
+        for tile in KR.TILES:
+            before = KR.hist_launches
+            got = KR.radix_hist(keys, tile=tile)
+            assert KR.hist_launches == before + 1
+            assert all(torch.equal(x.cpu(), y) for x, y in zip(got, hist))
+            for p in range(4):
+                for v in vals:
+                    want = KR.radix_pass_plain(kt, v, hist[1], p)
+                    before = KR.pass_launches
+                    got = KR.radix_pass(keys, None if v is None else
+                                        v.to(cuda), starts, p, tile=tile)
+                    torch.cuda.synchronize()
+                    assert KR.pass_launches == before + 1
+                    assert torch.equal(got[0].cpu(), want[0])
+                    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_radix_sort_chunks_key_bits_and_values_on_the_card(cuda):
+    kt = _radix_keys(3, 5000, "repeated", 1)
+    vals = torch.arange(15000, dtype=torch.float32).reshape(3, 5000)
+    for key_bits in (8, 12, 32):
+        want = KR.radix_sort_chunks_plain(kt, vals, key_bits)
+        before = KR.pass_launches
+        got = ops.radix_sort_chunks(kt.to(cuda), vals.to(cuda), key_bits)
+        assert KR.pass_launches == before + -(-key_bits // 8)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_radix_scratch_is_clear_after_each_launch(cuda):
+    """The ticket, the histogram accumulators and their counters are back
+    at zero after every launch (the next launch starts from them), and a
+    run of launches of other shapes leaves the results unchanged."""
+    keys = _radix_keys(4, 3000, "repeated", 2).to(cuda)
+    first = ops.radix_sort_chunks(keys)
+    for shape in ((64, 700), (1, 1), (2, 40000)):
+        ops.radix_sort_chunks(_radix_keys(*shape, "one_bucket", 3).to(cuda))
+        KR.radix_rank(_radix_keys(*shape, "repeated", 4).to(cuda), 16)
+    again = ops.radix_sort_chunks(keys)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    scratch = KR._SCRATCH[(keys.device.index, stream)]
+    torch.cuda.synchronize()
+    assert int(scratch.ticket.abs().sum()) == 0
+    assert int(scratch.acc.abs().sum()) == 0
+    assert int(scratch.done.abs().sum()) == 0
 
 
 def test_radix_rank_kernel_rejects_what_it_does_not_take(cuda):
@@ -351,6 +449,21 @@ def test_radix_rank_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         KR.radix_rank(torch.zeros((8, 2), dtype=torch.int64,
                                   device=cuda).T)
+    with pytest.raises(ValueError, match="tile"):
+        KR.radix_rank(torch.zeros((2, 8), dtype=torch.int64, device=cuda),
+                      tile=512)
+    keys = torch.zeros((2, 8), dtype=torch.int64, device=cuda)
+    _, starts = KR.radix_hist(keys)
+    with pytest.raises(TypeError):
+        KR.radix_pass(keys, torch.zeros((2, 8), dtype=torch.int16,
+                                        device=cuda), starts, 0)
+    with pytest.raises(ValueError, match="starts"):
+        KR.radix_pass(keys, None, starts.long(), 0)
+    with pytest.raises(ValueError, match="pass"):
+        KR.radix_pass(keys, None, starts, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.radix_sort_chunks(keys, torch.zeros((8, 2), dtype=torch.int32,
+                                                device=cuda).T)
 
 
 def test_chain_stack_is_one_launch(cuda):
