@@ -34,7 +34,16 @@ the paged pool with its ring group (and its ``score()`` with and without
 speculation), and the closed observability loop: a forced overload on the
 tight paged pool under a queue-wait SLO and a ``BackpressureController``
 against the uncontrolled run, and one ``AutotuneController`` re-sweep of
-``dtw.tile`` over ``KernelService`` DTW submits.
+``dtw.tile`` over ``KernelService`` DTW submits. Then the MoE, hybrid and
+embeds LMs: ``olmoe-1b-7b`` at full width and depth and ``jamba-v0.1-52b``
+at full width cut to one period (8 of 32 layers), each with an fp32
+prefill with and without ``flash_attention`` (logits and every top-k
+routing set held), ``generate``'s chunk path against one prefill and the
+scheduler on contiguous slots and on the paged pool against per-request
+``generate`` (drop-free, routing pinned for the gates, free runs counted),
+bf16 serving and a profiled prefill split by part (experts, dispatch,
+Mamba scan, ``flash_attention``); and ``musicgen-large`` served through
+``launch.serve`` on prompt embeddings.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -43,12 +52,14 @@ repository's ``src/`` beside it. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is a JSON object with
 one entry per kernel, the SpMV and NW numbers (``paper_kernels``), the
 LM paths' serving numbers (``lm``, ``attn_lm``, ``ring_lm``,
-``spec_ring_lm``) and the autotune re-sweep (``obs_autotune``).
+``spec_ring_lm``, ``moe_lm``, ``hybrid_lm``, ``embeds_lm``) and the
+autotune re-sweep (``obs_autotune``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -571,6 +582,9 @@ FLASH_SHAPES = ((2, 4, 4, 128, 128, 64, 0),       # the reference's sweep: MHA
                 (2, 32, 32, 1024, 1024, 128, 0),  # hd 128: deepseek-7b (MHA)
                 (1, 40, 8, 1000, 1000, 128, 0),   # hd 128: qwen2.5-14b, ragged
                 (1, 16, 8, 2048, 2048, 256, 1024),  # gemma3-12b's local layers
+                (4, 16, 16, 2048, 2048, 128, 0),  # olmoe-1b-7b's prefill
+                (1, 32, 8, 2048, 2048, 128, 0),   # jamba-v0.1-52b's prefill
+                (4, 32, 32, 2048, 2048, 64, 0),   # musicgen-large's prefill
                 (4, 8, 1, 2048, 2048, 256, 0))    # gemma-2b's prefill
 # kernel against plain version: in fp32 both sum in fp32 in other orders
 # (errors near 1e-6 on outputs near 1); in bf16 the tensor-core kernel also
@@ -1634,41 +1648,60 @@ GVP_PROMPT, GVP_CHUNK = 200, 64     # 3 chunks of 64, then 8 decode steps
 GVP_RTOL = {"rwkv": 1e-3, "attn": 3e-2}
 
 
-def generate_vs_prefill(params, cfg, dev, seed, rtol) -> dict:
-    """The prompt consumed as engine.generate consumes it (full chunks of
+def chunk_walk(params, cfg, dev, prompt, kv_dtype=None):
+    """``prompt`` consumed as engine.generate consumes it: full chunks of
     GVP_CHUNK through make_chunk_step over the first L-1 tokens, the rest
-    through make_slot_decode_step) up to its last position, against one
-    make_prefill_step over the whole prompt: the last position's logits
-    within rtol of the largest prefill logit."""
+    through make_slot_decode_step, on KV caches in ``kv_dtype`` if given
+    (else the port's bf16). Returns the last position's logits and the
+    (first, end) positions of each step, in order."""
     import torch
     from repro_torch.models import transformer as TT
+    from repro_torch.serve import engine
+
+    n = prompt.shape[0]
+    chunk = engine.make_chunk_step(cfg)
+    step = engine.make_slot_decode_step(cfg)
+    caches = TT.init_caches(cfg, 1, n + 1, per_slot_pos=True, device=dev)
+    if kv_dtype is not None:
+        for c in caches.values():
+            if "attn" in c:
+                c["attn"] = c["attn"]._replace(k=c["attn"].k.to(kv_dtype),
+                                               v=c["attn"].v.to(kv_dtype))
+    at = lambda p: torch.tensor([p], device=dev)  # noqa: E731
+    ctx, spans = 0, []
+    while n - 1 - ctx >= GVP_CHUNK:
+        _, caches = chunk(params, caches, prompt[None, ctx:ctx + GVP_CHUNK],
+                          at(ctx))
+        spans.append((ctx, ctx + GVP_CHUNK))
+        ctx += GVP_CHUNK
+    while ctx < n:
+        _, lg, caches = step(params, caches, prompt[None, ctx:ctx + 1],
+                             at(ctx), torch.zeros(1, device=dev), None)
+        spans.append((ctx, ctx + 1))
+        ctx += 1
+    return lg[0, -1], spans
+
+
+def generate_vs_prefill(params, cfg, dev, seed, rtol) -> dict:
+    """The prompt consumed as engine.generate consumes it (chunk_walk) up
+    to its last position, against one make_prefill_step over the whole
+    prompt: the last position's logits within rtol of the largest prefill
+    logit."""
+    import torch
     from repro_torch.serve import engine
 
     g = torch.Generator(device=dev).manual_seed(seed + 30)
     prompt = torch.randint(0, cfg.vocab, (GVP_PROMPT,), generator=g,
                            device=dev)
-    chunk = engine.make_chunk_step(cfg)
-    step = engine.make_slot_decode_step(cfg)
-    caches = TT.init_caches(cfg, 1, GVP_PROMPT + 1, per_slot_pos=True,
-                            device=dev)
-    at = lambda p: torch.tensor([p], device=dev)  # noqa: E731
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ctx = n_chunks = 0
-    while GVP_PROMPT - 1 - ctx >= GVP_CHUNK:
-        _, caches = chunk(params, caches, prompt[None, ctx:ctx + GVP_CHUNK],
-                          at(ctx))
-        ctx += GVP_CHUNK
-        n_chunks += 1
-    n_steps = GVP_PROMPT - ctx
-    while ctx < GVP_PROMPT:
-        _, lg, caches = step(params, caches, prompt[None, ctx:ctx + 1],
-                             at(ctx), torch.zeros(1, device=dev), None)
-        ctx += 1
+    lg, spans = chunk_walk(params, cfg, dev, prompt)
+    n_chunks = sum(1 for a, b in spans if b - a > 1)
+    n_steps = len(spans) - n_chunks
     want, _ = engine.make_prefill_step(cfg, 0)(params,
                                                {"tokens": prompt[None]})
     torch.cuda.synchronize()
-    err = float((lg[0, -1] - want[0, -1]).abs().max())
+    err = float((lg - want[0, -1]).abs().max())
     scale = float(want.abs().max())
     log(f"[gen-vs-prefill] {cfg.name} fp32, prompt {GVP_PROMPT}: {n_chunks} "
         f"chunks of {GVP_CHUNK} + {n_steps} decode steps against one "
@@ -1728,17 +1761,17 @@ def sched_requests(vocab, seed):
     return prompts, [int(n) for n in mnts]
 
 
-def drive_scheduler(sched, prompts, mnts, window=None):
-    """4 requests at once, then one every 3 steps, to the end: completions
-    by request index. ``window`` = (first, last) step: those steps run
-    under torch.profiler (CUDA activity), whose (wall us, device spans) go
-    into ``sched.profile_window``."""
+def drive_scheduler(sched, prompts, mnts, window=None, first=SCHED_SLOTS):
+    """``first`` requests at once, then one every 3 steps, to the end:
+    completions by request index. ``window`` = (first, last) step: those
+    steps run under torch.profiler (CUDA activity), whose (wall us, device
+    spans) go into ``sched.profile_window``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     rid2i = {}
-    for i in range(SCHED_SLOTS):
+    for i in range(first):
         rid2i[sched.submit([prompts[i]], max_new_tokens=mnts[i])[0]] = i
-    sub, steps, done = SCHED_SLOTS, 0, []
+    sub, steps, done = first, 0, []
     prof = None
     while sched.pending or sched.live or sub < len(prompts):
         if window and steps == window[0]:
@@ -1773,17 +1806,18 @@ def sched_config(**kw):
 
 
 def stream_gate(params, cfg, dev, prompts, mnts, done, want, what,
-                rtol=SCHED_TIE_RTOL):
+                rtol=SCHED_TIE_RTOL, prefill=None):
     """Each completion in ``done`` (by request index) against the stream
     ``want[i]``: all ``mnts[i]`` tokens (reason 'length'), equal, or first
     different at a near-tie of the two tokens' logits (within ``rtol`` of
     max |logit|, one prefill of the prompt plus the common prefix in the
     weights' dtype: cuBLAS may take another kernel at another batch width).
-    Returns (streams equal exactly, near-ties)."""
+    ``prefill(i)``, if given, returns the prefill step to use for request
+    i. Returns (streams equal exactly, near-ties)."""
     import numpy as np
     import torch
     from repro_torch.serve import engine
-    prefill = engine.make_prefill_step(cfg, 0)
+    plain = engine.make_prefill_step(cfg, 0)
     exact, ties = 0, []
     for i, (p, n) in enumerate(zip(prompts, mnts)):
         got = done[i].tokens
@@ -1794,8 +1828,9 @@ def stream_gate(params, cfg, dev, prompts, mnts, done, want, what,
             continue
         j = int(np.argmax(got != want[i]))
         ctx = np.concatenate([p, got[:j]])
-        lg, _ = prefill(params, {"tokens": torch.as_tensor(
-            ctx, dtype=torch.int64, device=dev)[None]})
+        lg, _ = (prefill(i) if prefill else plain)(params, {
+            "tokens": torch.as_tensor(ctx, dtype=torch.int64,
+                                      device=dev)[None]})
         lg = lg[0, -1].float()
         gap = float((lg[int(got[j])] - lg[int(want[i][j])]).abs())
         scale = float(lg.abs().max())
@@ -3377,6 +3412,789 @@ def flash_attention_entry(dev, errs, attn) -> dict:
             "shapes": errs["flash_shapes"]}
 
 
+# --------------------------------------------------------------------------
+# phase 10: the MoE, hybrid and embeds LMs. olmoe-1b-7b at full width and
+# depth; jamba-v0.1-52b at full width, cut to one period (8 of 32 layers:
+# its fp32 masters of 51.5 B parameters would take 206 GB, one period takes
+# 53.2 GB); musicgen-large at full width and depth on prompt embeddings
+# --------------------------------------------------------------------------
+
+MOE_ARCH, MOE_PARAMS = "olmoe-1b-7b", 6_919_096_320
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 8
+HYBRID_PARAMS = 13_295_235_072     # jax.eval_shape at num_layers=8
+EMBEDS_ARCH, EMBEDS_PARAMS = "musicgen-large", 3_225_618_432
+MOE_ON_OFF_PROMPT = 512       # the fp32 kernel-vs-plain prefill, batch 1
+# capacity 16 is drop-free for both (k * 16 / E >= 1, so every expert can
+# take every token of a call): capacity is computed from the tokens of one
+# call, so at the published 1.25 a chunk, a decode step of the pool and a
+# whole prefill drop different entries and their streams legitimately
+# differ; the exact-stream gates run drop-free, as the reference's own test
+DROP_FREE = 16.0
+# routing is discrete: a top-k set may flip between two fp32 runs only at a
+# near-tie of the k-th and (k+1)-th router probabilities
+ROUTER_FLIP_MARGIN = 1e-4
+# the scheduler arm: 4 requests on 2 slots, prompts of 1 + 256 q + r
+# tokens (q in 1..3), 8-16 new tokens
+MOE_SLOTS, MOE_MAX_LEN, MOE_REQS = 2, 1024, 4
+HYBRID_BATCH = 1              # jamba's bf16 serving batch (1 x 2,048)
+# the bf16 prefill's device time by part of the model: each part is the
+# port's function named here, wrapped in a torch.profiler record_function
+# for the profiled prefill only
+SPLIT_PARTS = (("moe.router", "repro_torch.models.moe", "_router"),
+               ("moe.dispatch", "repro_torch.models.moe", "_local_dispatch"),
+               ("moe.experts", "repro_torch.models.moe", "_experts"),
+               ("moe.combine", "repro_torch.models.moe", "_combine"),
+               ("mamba.block", "repro_torch.models.ssm", "mamba_block"),
+               ("mamba.scan", "repro_torch.core.linear_attn",
+                "mamba_chunked"))
+
+
+@contextlib.contextmanager
+def patched(module, name, make):
+    """``module.name`` replaced by ``make(original)`` inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def routed(fn):
+    """moe._router hooked inside the block: each call's probabilities (N,
+    E) and top-k experts (N, k) go to ``fn``. Where fn returns other
+    experts (N, k), those are pinned in the call's place, weighted by the
+    call's own probabilities over them, renormalised."""
+    import torch
+    from repro_torch.models import moe as M
+
+    def make(orig):
+        def run(params, cfg, xt):
+            probs, top_p, top_e = orig(params, cfg, xt)
+            pin = fn(probs, top_e)
+            if pin is None:
+                return probs, top_p, top_e
+            top_p = torch.gather(probs, 1, pin)
+            return probs, top_p / top_p.sum(-1, keepdim=True), pin
+        return run
+    with patched(M, "_router", make):
+        yield
+
+
+def recorder(calls: list):
+    """An fn for routed that appends each call's (probs, top_e)."""
+    def fn(probs, top_e):
+        calls.append((probs, top_e))
+    return fn
+
+
+def pin_spans(top_e, spans, n_moe):
+    """An fn for routed over one batch-1 run: call i is MoE layer i % n_moe
+    of the step over positions spans[i // n_moe] = (a, b), and takes the
+    experts top_e[layer, a:b] of an (n_moe, positions, k) table."""
+    count = [0]
+
+    def fn(probs, own):
+        f, layer = divmod(count[0], n_moe)
+        count[0] += 1
+        a, b = spans[f]
+        return top_e[layer, a:b]
+    return fn
+
+
+def route_tables(calls, n_moe, spans):
+    """A batch-1 run's recorded routing (``calls``, one per MoE layer per
+    step, step f over positions spans[f]) as (probs (n_moe, P, E), top_e
+    (n_moe, P, k)) tables, MoE layer by position."""
+    import torch
+    return tuple(torch.stack([torch.cat([calls[f * n_moe + layer][j]
+                                         for f in range(len(spans))])
+                              for layer in range(n_moe)]) for j in (0, 1))
+
+
+def routing_flips(got_e, want_p, want_e, k) -> dict:
+    """The top-k sets of one run (got_e (layers, P, k)) that differ from
+    another's (want_e, its probabilities want_p (layers, P, E)), each with
+    its router margin in the other run (k-th minus (k+1)-th probability).
+    A first flip has no flip upstream of it, at an earlier layer of the
+    same or an earlier position: it is no cascade of another flip, so its
+    margin is the one the difference between the runs alone had to cross."""
+    import torch
+    diff = (torch.sort(got_e, -1).values
+            != torch.sort(want_e, -1).values).any(-1)
+    srt = torch.sort(want_p, -1, descending=True).values
+    margin = srt[..., k - 1] - srt[..., k]
+    below = (diff.int().cumsum(0) - diff.int()) > 0
+    first = diff & ~(below.int().cumsum(1) > 0)
+
+    def span(mask):
+        m = margin[mask]
+        return (float(m.min()), float(m.max())) if m.numel() else (None, None)
+    lo, hi = span(diff)
+    first_lo, first_hi = span(first)
+    return {"sets": diff.numel(), "flipped_sets": int(diff.sum()),
+            "min_margin": lo, "max_margin": hi,
+            "first_flips": int(first.sum()),
+            "first_flip_min_margin": first_lo,
+            "first_flip_max_margin": first_hi}
+
+
+def n_layers_of(cfg, pred) -> int:
+    return cfg.num_periods * sum(1 for s in cfg.pattern if pred(s))
+
+
+def kernel_vs_plain_prefill(params, cfg, dev, seed, tag) -> dict:
+    """One fp32 prefill of 1 x MOE_ON_OFF_PROMPT (tokens, or embeddings
+    for an embeds model) with flash_attention and with the plain
+    blockwise_attention: last logits within ON_OFF_RTOL of the largest,
+    flash_attention launched once per attention layer (0 plain), and, for
+    an MoE model at the config's capacity factor, every top-k set equal
+    between the runs or flipped at a router margin <= ROUTER_FLIP_MARGIN."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.serve import engine
+
+    n_attn = n_layers_of(cfg, lambda s: s.mixer == "attn")
+    n_moe = n_layers_of(cfg, lambda s: s.mlp == "moe")
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    if cfg.input_mode == "embeds":
+        inp = {"embeds": torch.randn((1, MOE_ON_OFF_PROMPT, cfg.d_model),
+                                     generator=g, device=dev)}
+    else:
+        inp = {"tokens": torch.randint(0, cfg.vocab, (1, MOE_ON_OFF_PROMPT),
+                                       generator=g, device=dev)}
+    runs = {}
+    for use in (True, False):       # warm-up: first-call costs untimed
+        engine.make_prefill_step(cfg, 0, use_kernels=use)(
+            params, {k: v[:, :64] for k, v in inp.items()})
+    for use in (True, False):
+        step = engine.make_prefill_step(cfg, 0, use_kernels=use)
+        calls = []
+        with routed(recorder(calls)):
+            torch.cuda.synchronize()
+            KF.launches = 0
+            t0 = time.perf_counter()
+            logits, _ = step(params, inp)
+            torch.cuda.synchronize()
+            runs[use] = (logits, (time.perf_counter() - t0) * 1e3,
+                         KF.launches, calls)
+    (lg_on, ms_on, n_on, c_on), (lg_off, ms_off, n_off, c_off) = \
+        runs[True], runs[False]
+    check(n_on == n_attn and n_off == 0, f"{tag}: flash_attention launched "
+          f"{n_on} (kernels on) and {n_off} (off) times, expected {n_attn} "
+          "and 0")
+    check(len(c_on) == len(c_off) == n_moe, f"{tag}: {len(c_on)} and "
+          f"{len(c_off)} router calls, expected {n_moe}")
+    check(bool(torch.isfinite(lg_on).all()), f"{tag}: non-finite logits")
+    scale = float(lg_off.abs().max())
+    err = float((lg_on - lg_off).abs().max())
+    routing = None
+    if n_moe:
+        whole = [(0, MOE_ON_OFF_PROMPT)]
+        routing = routing_flips(route_tables(c_on, n_moe, whole)[1],
+                                *route_tables(c_off, n_moe, whole),
+                                cfg.experts_per_token)
+    log(f"[{tag}] fp32 prefill 1x{MOE_ON_OFF_PROMPT} (capacity factor "
+        f"{getattr(cfg, 'capacity_factor', None)}): kernel {ms_on:.1f} ms "
+        f"({n_on} flash_attention launches), blockwise {ms_off:.1f} ms; "
+        f"last logits max_abs_err {err} of max |logit| {scale:.4f}; "
+        f"routing {routing}")
+    check(err <= ON_OFF_RTOL * scale, f"{tag}: fp32 logits kernel/blockwise "
+          f"differ by {err} > {ON_OFF_RTOL} * {scale}")
+    check(routing is None or routing["max_margin"] is None
+          or routing["max_margin"] <= ROUTER_FLIP_MARGIN,
+          f"{tag}: a top-k set flipped at router margin "
+          f"{routing and routing['max_margin']} > {ROUTER_FLIP_MARGIN}")
+    same_first = torch.equal(torch.argmax(lg_on[:, -1], -1),
+                             torch.argmax(lg_off[:, -1], -1))
+    return {"prompt": MOE_ON_OFF_PROMPT, "logits_max_abs_err": err,
+            "logits_max_abs": scale, "first_token_equal": same_first,
+            "launches": {"kernel": n_on, "blockwise": n_off},
+            "prefill_ms_kernel": ms_on, "prefill_ms_blockwise": ms_off,
+            "routing": routing}
+
+
+def moe_requests(vocab, seed):
+    """(prompts, max_new_tokens) of the MoE scheduler arm, from seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 110)
+    q = rng.integers(1, 4, MOE_REQS)
+    r = rng.integers(0, 32, MOE_REQS)
+    lens = 1 + SCHED_CHUNK * q + r
+    mnts = rng.integers(8, 17, MOE_REQS)
+    prompts = [rng.integers(0, vocab, ln).astype(np.int32) for ln in lens]
+    return prompts, [int(n) for n in mnts]
+
+
+def generate_spans(ln, mnt, chunk):
+    """The positions each step of engine.generate covers: full chunks over
+    the first L-1 tokens, then one decode step per position up to the one
+    that yields the last new token (L + mnt - 2)."""
+    n = (ln - 1) // chunk
+    return ([(f * chunk, (f + 1) * chunk) for f in range(n)]
+            + [(p, p + 1) for p in range(n * chunk, ln + mnt - 1)])
+
+
+@contextlib.contextmanager
+def scheduler_routing(sched, prompts, mnts, n_moe, k, pin=None):
+    """Inside the block each scheduler step's live rows are mapped to a
+    request and its positions: a chunk row by its tokens, found in the
+    prompts at its position; a decode row by the request that last chunked
+    into its slot (every prompt starts with a chunk). Each live row's own
+    top-k experts are recorded into the (n_moe, L + mnt - 1, k) table of
+    its request (-1 where no step routed), which the block yields; with
+    ``pin`` (one such table per request) a live row's experts are pinned to
+    its request's at the same layer and positions. Free rows keep their
+    own routing."""
+    import torch
+    slots = sched.slots
+    seen = [torch.full((n_moe, len(p) + n - 1, k), -1, dtype=torch.int64,
+                       device=sched.device) for p, n in zip(prompts, mnts)]
+    owner, rows, count = {}, [], [0]
+
+    def chunk(params, idx, tokens, pos):
+        n = tokens.shape[1]
+        for s, row, p in zip(idx, tokens.tolist(), pos.tolist()):
+            owner[s] = next(i for i, q in enumerate(prompts)
+                            if q[p:p + n].tolist() == row)
+        rows[:] = [(owner[s], p, n) for s, p in zip(idx, pos.tolist())]
+        count[0] = 0
+        return run_chunk(params, idx, tokens, pos)
+
+    def decode(params, tokens, pos, *a, **kw):
+        live = set(slots.live)
+        rows[:] = [(owner[s], p, 1) if s in live else None
+                   for s, p in enumerate(pos.tolist())]
+        count[0] = 0
+        return run_decode(params, tokens, pos, *a, **kw)
+
+    def fn(probs, top_e):
+        layer = count[0] % n_moe
+        count[0] += 1
+        out = top_e.clone() if pin else None
+        for r, row in enumerate(rows):
+            if row is not None:
+                i, p, n = row
+                seen[i][layer, p:p + n] = top_e[r * n:(r + 1) * n]
+                if pin:
+                    out[r * n:(r + 1) * n] = pin[i][layer, p:p + n]
+        return out
+
+    run_chunk, run_decode = slots.run_chunk, slots.run_decode
+    slots.run_chunk, slots.run_decode = chunk, decode
+    try:
+        with routed(fn):
+            yield seen
+    finally:
+        del slots.run_chunk, slots.run_decode
+
+
+def moe_scheduler(params, cfg, dev, seed, tag, gate) -> dict:
+    """The MoE arm's requests through serve.Scheduler on MOE_SLOTS slots
+    against per-request engine.generate at the same capacity factor.
+
+    Free runs, contiguous (and with ``gate`` paged): the equal streams are
+    counted, not gated, and each request's routing is held against
+    generate's (flips and first flips with their margins). Routing is
+    discrete: the pool decodes 2 rows where generate decodes 1, cuBLAS may
+    then round the fp32 projections in other last bits, a k or v value on
+    a bf16 rounding boundary of the cache then rounds the other way, and a
+    top-k set with a margin of that order flips, which moves its token's
+    output by a part of its magnitude. Drop-free, only such rounding
+    separates the two paths, so every first flip of a free run is gated at
+    a margin <= ROUTER_FLIP_MARGIN (at the published factor the pool and
+    generate drop other entries, so flips there are reported only). With
+    ``gate`` (drop-free) each
+    backing runs again with every live row's top-k sets pinned to
+    generate's for the same request and positions (scheduler_routing), and
+    those streams go through stream_gate, whose near-tie prefill is pinned
+    the same way; no flash_attention launch in any scheduler run."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.serve import Scheduler, engine
+
+    n_moe = n_layers_of(cfg, lambda s: s.mlp == "moe")
+    k = cfg.experts_per_token
+    prompts, mnts = moe_requests(cfg.vocab, seed)
+    want, tables = [], []
+    for p, n in zip(prompts, mnts):
+        calls = []
+        with routed(recorder(calls)):
+            want.append(engine.generate(params, cfg, p, n,
+                                        prefill_chunk=SCHED_CHUNK,
+                                        cache_slots=MOE_MAX_LEN)[0])
+        spans = generate_spans(len(p), n, SCHED_CHUNK)
+        check(len(calls) == n_moe * len(spans), f"{tag}: {len(calls)} "
+              f"router calls in generate, expected {n_moe * len(spans)}")
+        tables.append(route_tables(calls, n_moe, spans))
+
+    def pinned_prefill(i):
+        step = engine.make_prefill_step(cfg, 0)
+
+        def run(params, batch):
+            n = batch["tokens"].shape[1]
+            with routed(pin_spans(tables[i][1], [(0, n)], n_moe)):
+                return step(params, batch)
+        return run
+
+    backings = [("contiguous", {})]
+    if gate:
+        backings.append(("paged", dict(allocator="paged",
+                                       block_size=PAGED_BLOCK)))
+    out = {"capacity_factor": cfg.capacity_factor,
+           "prompt_lens": [len(p) for p in prompts], "max_new": mnts,
+           "slots": MOE_SLOTS}
+    for name, kw in backings:
+        for pin in ((False, True) if gate else (False,)):
+            sched = Scheduler(cfg, params, sched_config(
+                num_slots=MOE_SLOTS, max_len=MOE_MAX_LEN, **kw))
+            torch.cuda.synchronize()
+            KF.launches = 0
+            t0 = time.perf_counter()
+            with scheduler_routing(sched, prompts, mnts, n_moe, k, [
+                    e for _, e in tables] if pin else None) as seen:
+                done = drive_scheduler(sched, prompts, mnts,
+                                       first=MOE_SLOTS)
+            wall = time.perf_counter() - t0
+            launches = KF.launches
+            arm = f"{name}{' pinned' if pin else ''}"
+            check(all(bool((s >= 0).all()) for s in seen), f"{tag} {arm} "
+                  "scheduler: a position no step routed")
+            routing = None
+            if pin:
+                exact, ties = stream_gate(
+                    params, cfg, dev, prompts, mnts, done, want,
+                    f"{tag} {arm} scheduler against generate",
+                    prefill=pinned_prefill)
+            else:
+                exact = sum(np.array_equal(done[i].tokens, want[i])
+                            for i in range(MOE_REQS))
+                ties = None
+                routing = [routing_flips(s, *t, k)
+                           for s, t in zip(seen, tables)]
+                worst = max((r["first_flip_max_margin"] or 0.0
+                             for r in routing), default=0.0)
+                check(not gate or worst <= ROUTER_FLIP_MARGIN, f"{tag} "
+                      f"{arm} scheduler: a first flip at router margin "
+                      f"{worst} > {ROUTER_FLIP_MARGIN} against generate")
+            check(launches == 0, f"{tag} {arm} scheduler: {launches} "
+                  "flash_attention launches, expected 0")
+            out[arm] = {"wall_s": wall, "exact_streams": exact,
+                        "near_ties": ties, "launches": launches,
+                        "decode_steps": sched.counters["decode_steps"],
+                        "chunk_steps": sched.counters["chunk_steps"],
+                        "routing": routing}
+            log(f"[{tag}] fp32 scheduler, capacity factor "
+                f"{cfg.capacity_factor}, {arm}: {MOE_REQS} requests "
+                f"(prompts {[len(p) for p in prompts]}, new {mnts}) on "
+                f"{MOE_SLOTS} slots in {wall:.2f} s; {exact} of {MOE_REQS} "
+                f"streams equal per-request generate"
+                f"{', gated' if pin else ' (not gated)'}, near-ties {ties}; "
+                f"{launches} flash_attention launches; routing against "
+                f"generate's by request {routing}")
+            del sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_generate_vs_prefill(params, cfg, dev, seed, tag) -> dict:
+    """generate_vs_prefill for an MoE model (drop-free ``cfg``): three
+    walks against one prefill. Routing is discrete, and the chunk path
+    attends over the bf16 KV cache where the prefill attends over
+    unrounded fp32 k and v: router inputs move by about a bf16 rounding,
+    which flips top-k sets whose margin is of that order, and a flipped
+    set moves its token's output by a part of its magnitude. So the walk
+    runs free (error, flips and first flips with their margins reported);
+    free on an fp32 KV cache, where only the fp32 rounding of the chunk
+    path differs from the prefill (gated: every first flip at a margin <=
+    ROUTER_FLIP_MARGIN, last logits within GVP_RTOL["attn"]); and on the
+    bf16 cache with every top-k set pinned to the prefill's (gated at
+    GVP_RTOL["attn"])."""
+    import torch
+    from repro_torch.serve import engine
+
+    n_moe = n_layers_of(cfg, lambda s: s.mlp == "moe")
+    k = cfg.experts_per_token
+    g = torch.Generator(device=dev).manual_seed(seed + 30)
+    prompt = torch.randint(0, cfg.vocab, (GVP_PROMPT,), generator=g,
+                           device=dev)
+    spans = generate_spans(GVP_PROMPT, 1, GVP_CHUNK)
+    t0 = time.perf_counter()
+    ref = []
+    with routed(recorder(ref)):
+        want, _ = engine.make_prefill_step(cfg, 0)(params,
+                                                   {"tokens": prompt[None]})
+    want = want[0, -1]
+    scale = float(want.abs().max())
+    check(len(ref) == n_moe, f"{tag}: {len(ref)} router calls in the "
+          "prefill")
+    p_ref, e_ref = route_tables(ref, n_moe, [(0, GVP_PROMPT)])
+    rtol = GVP_RTOL["attn"]
+    walks = {}
+    for name, kv, pin in (("free", None, False),
+                          ("fp32_kv", torch.float32, False),
+                          ("pinned", None, True)):
+        calls = []
+        with routed(pin_spans(e_ref, spans, n_moe) if pin
+                    else recorder(calls)):
+            lg, got = chunk_walk(params, cfg, dev, prompt, kv_dtype=kv)
+        check(got == spans, f"{tag}: the walk took steps {got}")
+        err = float((lg - want).abs().max())
+        walks[name] = {"max_abs_err": err, "rel_err": err / scale}
+        if not pin:
+            check(len(calls) == n_moe * len(spans), f"{tag}: {len(calls)} "
+                  f"router calls in the {name} walk")
+            walks[name]["routing"] = routing_flips(
+                route_tables(calls, n_moe, spans)[1], p_ref, e_ref, k)
+    torch.cuda.synchronize()
+    log(f"[gen-vs-prefill] {cfg.name} fp32 drop-free, prompt {GVP_PROMPT}, "
+        f"{len(spans)} steps, max |logit| {scale:.4f}, gate {rtol} "
+        f"relative; walks against one prefill {walks}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    fp32 = walks["fp32_kv"]
+    check(fp32["routing"]["first_flip_max_margin"] is None
+          or fp32["routing"]["first_flip_max_margin"] <= ROUTER_FLIP_MARGIN,
+          f"{tag}: on an fp32 KV cache a first flip at router margin "
+          f"{fp32['routing']['first_flip_max_margin']} > "
+          f"{ROUTER_FLIP_MARGIN}")
+    for name in ("fp32_kv", "pinned"):
+        check(walks[name]["max_abs_err"] <= rtol * scale, f"{tag}: "
+              f"generate's chunk path ({name}) and one prefill differ by "
+              f"{walks[name]['max_abs_err']} > {rtol} * {scale}")
+    return {"prompt": GVP_PROMPT, "chunk": GVP_CHUNK, "steps": len(spans),
+            "max_abs_logit": scale, "rtol": rtol, "walks": walks}
+
+
+def moe_fp32_arms(params, cfg, dev, seed, tag) -> dict:
+    """The three fp32 arms of an MoE model: kernel against plain at the
+    published capacity factor; generate's chunk path against one prefill
+    and the scheduler on both backings, drop-free; and the scheduler at the
+    published factor, its equal streams counted."""
+    import dataclasses
+    on_off = kernel_vs_plain_prefill(params, cfg, dev, seed, tag)
+    on_off["capacity_factor"] = cfg.capacity_factor
+    free = dataclasses.replace(cfg, capacity_factor=DROP_FREE)
+    gvp = moe_generate_vs_prefill(params, free, dev, seed, tag)
+    sched = moe_scheduler(params, free, dev, seed, tag, gate=True)
+    sched["published"] = moe_scheduler(params, cfg, dev, seed, tag,
+                                       gate=False)
+    return {"fp32_kernel_vs_plain": on_off, "generate_vs_prefill": gvp,
+            "scheduler": sched}
+
+
+def split_prefill(prefill, params, batch) -> dict:
+    """One bf16 prefill under torch.profiler (CPU and CUDA activity) with
+    SPLIT_PARTS wrapped in record_function: the device time of each part
+    (the kernels of the ops inside it), of flash_attention (by kernel
+    name), of everything else, and the card's idle share of the wall."""
+    import importlib
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def annotate(label):
+        def make(orig):
+            def run(*a, **kw):
+                with record_function(label):
+                    return orig(*a, **kw)
+            return run
+        return make
+
+    labels = [label for label, _, _ in SPLIT_PARTS]
+    with contextlib.ExitStack() as stack:
+        for label, mod, fn in SPLIT_PARTS:
+            stack.enter_context(patched(importlib.import_module(mod), fn,
+                                        annotate(label)))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+    spans = [s for s in device_spans(prof) if s[2] not in labels]
+    parts = dict.fromkeys(labels, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in parts:
+            parts[e.name] += e.device_time_total
+    busy = busy_us(spans)
+    flash = sum(e - s for s, e, name in spans if "flash_attention" in name)
+    kernels = sum(e - s for s, e, _ in spans)
+    inner = parts["mamba.scan"]     # nested inside mamba.block
+    named = (flash + parts["moe.router"] + parts["moe.dispatch"]
+             + parts["moe.experts"] + parts["moe.combine"]
+             + parts["mamba.block"])
+    out = {"wall_us": wall, "busy_us": busy, "idle_share": 1 - busy / wall,
+           "kernel_us": kernels, "flash_attention_us": flash,
+           **{f"{k}_us": v for k, v in parts.items()},
+           "mamba.block_outside_scan_us": parts["mamba.block"] - inner,
+           "other_us": kernels - named}
+    out["shares_of_kernel_time"] = {
+        k[:-3]: v / kernels for k, v in out.items()
+        if k.endswith("_us") and k not in ("wall_us", "busy_us",
+                                           "kernel_us") and kernels}
+    return out
+
+
+def bf16_timings(params, cfg, batch, step_inp, tag) -> dict:
+    """Warm timings of launch.serve's path on bf16 weights: a prefill
+    (host clock to a synchronize), then the same prefill split by part
+    (split_prefill), and DECODE_PROFILE_STEPS decode steps under the
+    profiler for the card's busy share."""
+    import torch
+    from repro_torch.serve import engine
+    b, s = next(iter(batch.values())).shape[:2]
+    prefill = engine.make_prefill_step(cfg, s + LM_GEN)
+    decode = engine.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    split = split_prefill(prefill, params, batch)
+    tok = engine.sample_token(logits)
+
+    def decode_loop():
+        nonlocal caches, tok
+        for i in range(DECODE_PROFILE_STEPS):
+            tok, _, caches = decode(params, caches, step_inp(tok), s + i)
+    dwall, dspans = profiled(decode_loop)
+    out = {"prefill_ms": warm_ms, "prefill_tok_s": b * s / (warm_ms / 1e3),
+           "prefill_busy_share": split["busy_us"] / split["wall_us"],
+           "prefill_split": split,
+           "decode_busy_share": busy_us(dspans) / dwall if dspans else None,
+           "decode_profiled_ms_per_step": dwall / 1e3 / DECODE_PROFILE_STEPS}
+    sh = {k: round(v, 4) for k, v in split["shares_of_kernel_time"].items()}
+    log(f"[{tag}] bf16 prefill {b}x{s}: warm {warm_ms:.1f} ms "
+        f"({out['prefill_tok_s']:.0f} tok/s); profiled "
+        f"{split['wall_us'] / 1e3:.1f} ms, card idle {split['idle_share']:.4f}, kernel time "
+        f"{split['kernel_us'] / 1e3:.2f} ms by part {sh}")
+    log(f"[{tag}] bf16 decode batch {b}: {DECODE_PROFILE_STEPS} steps under "
+        f"the profiler {out['decode_profiled_ms_per_step']:.3f} ms per "
+        f"step, card busy {out['decode_busy_share']}")
+    del caches
+    return out
+
+
+def serve_report(res, n_attn, params_want, tag) -> dict:
+    """launch.serve's (or its loop's) result: shapes, finiteness, one
+    flash_attention launch per attention layer, its timings."""
+    import torch
+    from repro_torch.models import transformer as TT
+    cfg, params = res["cfg"], res["params"]
+    n = TT.param_count(params)
+    check(n == params_want, f"{tag}: {n} parameters, not {params_want}")
+    gen = res["generated"]
+    b = gen.shape[0]
+    check(tuple(gen.shape) == (b, LM_GEN)
+          and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+          f"{tag}: generated tokens {tuple(gen.shape)} out of shape or range")
+    check(bool(torch.isfinite(res["logits"]).all()), f"{tag}: non-finite "
+          "logits")
+    check(res["launches"] == n_attn, f"{tag}: flash_attention launched "
+          f"{res['launches']} times in one prefill + decode, expected "
+          f"{n_attn}")
+    steps = res["decode_steps"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": n,
+           "active_params": TT.active_param_count(params, cfg),
+           "dtype": str(cfg.dtype).replace("torch.", ""), "batch": b,
+           "prompt_len": int(res["prompts"].shape[1]), "gen": LM_GEN,
+           "prefill_ms_first_call": res["prefill_ms"],
+           "decode_ms_per_step": res["decode_ms"] / steps,
+           "decode_tok_s": b * steps / (res["decode_ms"] / 1e3),
+           "launches": {"serve": res["launches"]}}
+    log(f"[{tag}] bf16 serving {cfg.name} ({cfg.num_layers} layers, {n} "
+        f"parameters, {out['active_params']} active) batch {b} x "
+        f"{out['prompt_len']}: first prefill {res['prefill_ms']:.1f} ms, "
+        f"decode {out['decode_ms_per_step']:.3f} ms per step "
+        f"({out['decode_tok_s']:.1f} tok/s); {res['launches']} "
+        "flash_attention launches")
+    return out
+
+
+def serve_launch(argv) -> dict:
+    """launch.serve.run(argv) with the flash_attention count at 0 just
+    before and read just after."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    KF.launches = 0
+    res = serve.run(argv)
+    res["launches"] = KF.launches
+    return res
+
+
+def serve_loop(params, cfg, batch, gen) -> dict:
+    """launch.serve's loop for a model built here (jamba, cut to one
+    period): make_prefill_step, then gen - 1 greedy make_decode_step
+    steps, timed on the host clock to a synchronize, the flash_attention
+    count at 0 just before and read just after."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.serve import engine
+    b, s = batch["tokens"].shape
+    prefill = engine.make_prefill_step(cfg, cache_slots=s + gen)
+    decode = engine.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    KF.launches = 0
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    tok = engine.sample_token(logits)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        tok, logits, caches = decode(params, caches,
+                                     {"tokens": tok[:, None]}, s + i)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    return {"cfg": cfg, "params": params, "prompts": batch["tokens"],
+            "generated": torch.stack(out, dim=1), "logits": logits,
+            "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
+            "decode_steps": gen - 1, "launches": KF.launches}
+
+
+def memory_reset() -> int:
+    """Collect what earlier phases or arms left for the garbage collector,
+    reset the peak and return the bytes still allocated: at a phase's start
+    its baseline, what earlier phases still hold."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_gb(base: int) -> float:
+    """Peak device memory allocated since the last memory_reset, above the
+    phase's baseline ``base``, in GB."""
+    import torch
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def moe_phase(dev, seed) -> dict:
+    """olmoe-1b-7b at full width and depth: the fp32 arms on weights drawn
+    here, then bf16 serving through launch.serve (batch 4 x 2,048, 32
+    greedy tokens) and its warm timings and split."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as TT
+
+    base = memory_reset()
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                              dtype=torch.float32)
+    t0 = time.perf_counter()
+    params = TT.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 120), dev)
+    torch.cuda.synchronize()
+    n = TT.param_count(params)
+    log(f"[moe] {cfg.name} fp32: {n} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(n == MOE_PARAMS, f"{cfg.name} has {n} parameters, not {MOE_PARAMS}")
+    out = moe_fp32_arms(params, cfg, dev, seed, "moe")
+    out["fp32_peak_gb"] = peak_gb(base)
+    del params
+    memory_reset()
+    n_attn = n_layers_of(cfg, lambda s: s.mixer == "attn")
+    res = serve_launch(["--arch", MOE_ARCH, "--full", "--batch",
+                        str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+                        "--gen", str(LM_GEN), "--seed", str(seed)])
+    out["serve"] = serve_report(res, n_attn, MOE_PARAMS, "moe")
+    out["serve"].update(bf16_timings(
+        res["params"], res["cfg"], {"tokens": res["prompts"]},
+        lambda tok: {"tokens": tok[:, None]}, "moe"))
+    out["serve"]["peak_gb"] = peak_gb(base)
+    log(f"[moe] peak device memory: fp32 arms {out['fp32_peak_gb']:.2f} GB, "
+        f"bf16 serving {out['serve']['peak_gb']:.2f} GB")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_phase(dev, seed) -> dict:
+    """jamba-v0.1-52b at full width, HYBRID_LAYERS deep: the fp32 arms,
+    then the same fp32 masters served in bf16 (batch 1 x 2,048, 32 greedy
+    tokens) through make_prefill_step / make_decode_step as launch.serve
+    drives them, and the warm timings and split."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as TT
+
+    base = memory_reset()
+    full = configs.get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=HYBRID_LAYERS,
+                              dtype=torch.float32)
+    t0 = time.perf_counter()
+    params = TT.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 130), dev)
+    torch.cuda.synchronize()
+    n = TT.param_count(params)
+    log(f"[hybrid] {cfg.name} fp32, {cfg.num_layers} of {full.num_layers} "
+        f"layers (pattern {[(s.mixer, s.mlp) for s in cfg.pattern]}): {n} "
+        f"parameters drawn on the card in {time.perf_counter() - t0:.2f} s")
+    check(n == HYBRID_PARAMS, f"{cfg.name} at {cfg.num_layers} layers has "
+          f"{n} parameters, not {HYBRID_PARAMS}")
+    out = moe_fp32_arms(params, cfg, dev, seed, "hybrid")
+    out["fp32_peak_gb"] = peak_gb(base)
+    memory_reset()
+    bf16 = dataclasses.replace(cfg, dtype=full.dtype)
+    tokens = torch.randint(0, cfg.vocab, (HYBRID_BATCH, LM_PROMPT),
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed + 1), device=dev)
+    res = serve_loop(params, bf16, {"tokens": tokens}, LM_GEN)
+    n_attn = n_layers_of(cfg, lambda s: s.mixer == "attn")
+    out["serve"] = serve_report(res, n_attn, HYBRID_PARAMS, "hybrid")
+    out["serve"].update(bf16_timings(
+        params, bf16, {"tokens": tokens},
+        lambda tok: {"tokens": tok[:, None]}, "hybrid"))
+    out["serve"]["peak_gb"] = peak_gb(base)
+    log(f"[hybrid] peak device memory: fp32 arms {out['fp32_peak_gb']:.2f} "
+        f"GB, bf16 serving {out['serve']['peak_gb']:.2f} GB")
+    del params, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def embeds_phase(dev, seed) -> dict:
+    """musicgen-large at full width and depth through launch.serve on
+    random bf16 prompt embeddings (batch 4 x 2,048, 32 steps, each step
+    fed the launcher's one step embedding), its fp32 kernel-vs-plain
+    prefill on the same weights, and its warm timings."""
+    import dataclasses
+    import torch
+    base = memory_reset()
+    res = serve_launch(["--arch", EMBEDS_ARCH, "--full", "--batch",
+                        str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+                        "--gen", str(LM_GEN), "--seed", str(seed)])
+    cfg = res["cfg"]
+    emb = res["prompts"]
+    check(cfg.input_mode == "embeds" and emb.dtype == torch.bfloat16
+          and tuple(emb.shape) == (LM_BATCH, LM_PROMPT, cfg.d_model),
+          f"embeds: prompts {emb.dtype} {tuple(emb.shape)}")
+    out = serve_report(res, cfg.num_layers, EMBEDS_PARAMS, "embeds")
+    out["fp32_kernel_vs_plain"] = kernel_vs_plain_prefill(
+        res["params"], dataclasses.replace(cfg, dtype=torch.float32), dev,
+        seed, "embeds")
+    step = torch.randn((LM_BATCH, 1, cfg.d_model), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           seed + 2)).to(torch.bfloat16)
+    out.update(bf16_timings(res["params"], cfg, {"embeds": emb},
+                            lambda tok: {"embeds": step}, "embeds"))
+    out["peak_gb"] = peak_gb(base)
+    log(f"[embeds] peak device memory {out['peak_gb']:.2f} GB")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3498,6 +4316,25 @@ def main(argv=None) -> int:
         line["obs_autotune"]["dp_wavefront_launches"]
     log(f"[obs] gemma3-12b speculation and autotune phases took "
         f"{time.perf_counter() - t_obs:.1f} s")
+
+    t_moe = time.perf_counter()
+    for key, phase in (("moe_lm", moe_phase), ("hybrid_lm", hybrid_phase),
+                       ("embeds_lm", embeds_phase)):
+        t0 = time.perf_counter()
+        line[key] = phase(dev, args.seed)
+        log(f"[{key}] phase took {time.perf_counter() - t0:.1f} s")
+    flash = next(k for k in line["kernels"] if k["name"] == "flash_attention")
+    flash["path_launches"] = {
+        "moe_lm": {"fp32_prefill": line["moe_lm"]["fp32_kernel_vs_plain"][
+            "launches"]["kernel"], **line["moe_lm"]["serve"]["launches"]},
+        "hybrid_lm": {"fp32_prefill": line["hybrid_lm"][
+            "fp32_kernel_vs_plain"]["launches"]["kernel"],
+            **line["hybrid_lm"]["serve"]["launches"]},
+        "embeds_lm": {"fp32_prefill": line["embeds_lm"][
+            "fp32_kernel_vs_plain"]["launches"]["kernel"],
+            **line["embeds_lm"]["launches"]}}
+    log(f"[moe] the MoE, hybrid and embeds phases took "
+        f"{time.perf_counter() - t_moe:.1f} s")
     log(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))

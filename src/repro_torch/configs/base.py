@@ -4,10 +4,9 @@ Each architecture has a ``configs/<id>.py`` exporting ``CONFIG`` (the
 published shape) and ``reduced()`` (a tiny same-family config for CPU
 tests), field for field as in the reference; only ``dtype`` is a
 ``torch.dtype``. The decoder is composed from a *period pattern* of
-LayerSpecs repeated depth/period times. In this port the ``attn`` and
-``rwkv`` mixers with the ``dense`` or ``rwkv_ffn`` MLP run; the ``mamba``
-mixer and the ``moe`` MLP raise ``NotImplementedError`` in
-``models.transformer``.
+LayerSpecs repeated depth/period times; ``models.transformer`` runs every
+mixer (``attn``, ``mamba``, ``rwkv``) and MLP (``dense``, ``moe``,
+``rwkv_ffn``) of the ten configs.
 """
 
 from __future__ import annotations

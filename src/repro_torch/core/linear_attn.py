@@ -1,20 +1,25 @@
-"""Chunked linear-attention recurrences, the WKV (RWKV6) part (port of
-``repro.core.linear_attn``).
+"""Chunked linear-attention recurrences, WKV (RWKV6) and Mamba (S6) (port
+of ``repro.core.linear_attn``).
 
-    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t                       (WKV)
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
-``wkv_chunked`` is the chunk-parallel form (intra-chunk causal matmuls plus
-a short scan over the T/C chunk-boundary states), ``wkv_ref`` its
-sequential oracle and ``wkv_decode_step`` one serving step. The model's
-prefill runs the recurrence on the hand-written kernel
-(``kernels.ssm_scan``) instead; ``wkv_chunked`` stays as the plain-torch
-point of comparison for it.
+    h_t = exp(dt_t A) (.) h_{t-1} + (dt_t x_t) B_t             (Mamba)
+    y_t = h_t C_t^T + D (.) x_t
 
-Numerics: fp32. Per-step log-decay is clamped to >= -1 (w >= e^-1), so
-with chunk <= 64 every within-chunk exponent stays below 64 < log(fp32
-max) ~ 88. The Mamba recurrences of the reference module come with the
-Mamba slice.
+``wkv_chunked`` and ``mamba_chunked`` are the chunk-parallel forms
+(intra-chunk work plus a short scan over the T/C chunk-boundary states),
+``wkv_ref`` and ``mamba_ref`` their sequential oracles, and
+``wkv_decode_step`` and ``mamba_decode_step`` one serving step each. The
+model's RWKV prefill runs the WKV recurrence on the hand-written kernel
+(``kernels.ssm_scan``) instead; ``wkv_chunked`` stays as the plain-torch
+point of comparison for it. The reference has no Pallas kernel for the
+Mamba scan, so ``mamba_chunked`` is what the Mamba layers run, on the card
+too.
+
+Numerics: fp32. Per-step log-decay is clamped to >= -1 (w >= e^-1, and
+dt * A >= -1 for Mamba), so with chunk <= 64 every within-chunk exponent
+stays below 64 < log(fp32 max) ~ 88.
 """
 
 from __future__ import annotations
@@ -142,3 +147,94 @@ def wkv_decode_step(r, w, k, v, u, s) -> Tuple[Tensor, Tensor]:
     y = torch.einsum("bk,bkv->bv", r, s + uu[None, :, None] * kv)
     s_next = w[:, :, None] * s + kv
     return y, s_next
+
+
+def mamba_chunked(x: Tensor, dt: Tensor, a: Tensor, b_in: Tensor,
+                  c_in: Tensor, d_skip: Tensor, h0: Optional[Tensor] = None,
+                  chunk: int = 64) -> Tuple[Tensor, Tensor]:
+    """Mamba (S6) selective scan, chunk-parallel.
+
+    x, dt: (B, T, d) input and positive step sizes; a: (d, n) negative
+    state matrix; b_in, c_in: (B, T, n); d_skip: (d,); h0: (B, d, n) or
+    None. Returns (y: (B, T, d) fp32, h_final: (B, d, n) fp32).
+
+    Within a chunk the prefix is a rescaled cumsum, h_j = e^{cum_j} (h_in
+    + sum_{i<=j} e^{-cum_i} u_i); across chunks only the T/C boundary
+    states are scanned. Padding steps carry dt = 0 (decay 1, no input), so
+    ``h_final`` is the state after step T. The (B, T/C, C, d, n)
+    temporaries are dropped as soon as the next one is made.
+    """
+    assert chunk <= 64, "chunk > 64 breaks the fp32 exponent bound"
+    bsz, t, d = x.shape
+    n = a.shape[-1]
+    x, dt, a, b_in, c_in, d_skip = (z.to(torch.float32) for z in
+                                    (x, dt, a, b_in, c_in, d_skip))
+
+    pad = (-t) % chunk
+    if pad:
+        x, dt, b_in, c_in = (torch.cat([z, z.new_zeros((bsz, pad,
+                                                         z.shape[-1]))], 1)
+                             for z in (x, dt, b_in, c_in))
+    tp = t + pad
+    nc = tp // chunk
+
+    xc = x.reshape(bsz, nc, chunk, d)
+    dtc = dt.reshape(bsz, nc, chunk, d)
+    bc = b_in.reshape(bsz, nc, chunk, n)
+    cc = c_in.reshape(bsz, nc, chunk, n)
+
+    # log decay per step and (channel, state): dt * A, clamped like wkv
+    cum = torch.clamp_min(dtc[..., :, None] * a, _MIN_LOGW)
+    cum = torch.cumsum(cum, dim=2)                     # (b, nc, C, d, n)
+    # input contribution u_i = dt_i x_i B_i (outer over n), rescaled to the
+    # chunk start and summed: acc_j = sum_{i<=j} e^{-cum_i} u_i
+    acc = (dtc * xc)[..., :, None] * bc[..., None, :]
+    acc = torch.cumsum(torch.exp(-cum) * acc, dim=2)
+
+    d_full = torch.exp(cum[:, :, -1])                  # (b, nc, d, n)
+    upd = d_full * acc[:, :, -1]                       # sum_i e^{cum_C-cum_i}u
+
+    h = (x.new_zeros((bsz, d, n)) if h0 is None else h0.to(torch.float32))
+    h_in = []
+    for j in range(nc):                                # the boundary scan
+        h_in.append(h)
+        h = d_full[:, j] * h + upd[:, j]
+    h_in = torch.stack(h_in, dim=1)                    # (b, nc, d, n)
+
+    hs = torch.exp(cum)
+    del cum
+    hs = hs * (h_in[:, :, None] + acc)                 # (b, nc, C, d, n)
+    del acc
+    y = torch.einsum("bnjds,bnjs->bnjd", hs, cc)
+    y = y + d_skip * xc
+    y = y.reshape(bsz, tp, d)[:, :t]
+    return y, h
+
+
+def mamba_ref(x, dt, a, b_in, c_in, d_skip, h0=None) -> Tuple[Tensor,
+                                                                 Tensor]:
+    """Sequential oracle for mamba_chunked (same clamp contract)."""
+    bsz, t, d = x.shape
+    n = a.shape[-1]
+    x, dt, a, b_in, c_in, d_skip = (z.to(torch.float32) for z in
+                                    (x, dt, a, b_in, c_in, d_skip))
+    h = x.new_zeros((bsz, d, n)) if h0 is None else h0.to(torch.float32)
+    ys = []
+    for i in range(t):
+        y, h = mamba_decode_step(x[:, i], dt[:, i], a, b_in[:, i],
+                                 c_in[:, i], d_skip, h)
+        ys.append(y)
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros((bsz, 0, d))
+    return y, h
+
+
+def mamba_decode_step(x, dt, a, b_in, c_in, d_skip, h) -> Tuple[Tensor,
+                                                                 Tensor]:
+    """Single-token Mamba update: x/dt: (B, d); b_in/c_in: (B, n);
+    h: (B, d, n). Returns (y: (B, d), h_next)."""
+    x, dt, a, b_in, c_in, d_skip, h = (z.to(torch.float32) for z in
+                                       (x, dt, a, b_in, c_in, d_skip, h))
+    la = torch.clamp_min(dt[:, :, None] * a[None], _MIN_LOGW)
+    h_next = torch.exp(la) * h + (dt * x)[:, :, None] * b_in[:, None, :]
+    y = torch.einsum("bds,bs->bd", h_next, c_in) + d_skip * x
+    return y, h_next

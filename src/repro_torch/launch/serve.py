@@ -5,8 +5,10 @@ A batch of random prompts is prefilled once (on the card, every attention
 layer is one ``flash_attention`` launch and every RWKV layer one
 ``ssm_scan`` launch), then decoded token by token: the decode loop is the
 1-D dependency-bound recurrence of serving. Attention archs decode over
-bf16 ring-buffer KV caches, RWKV with O(1) state. Weights are random,
-drawn from ``--seed``.
+bf16 ring-buffer KV caches, RWKV and Mamba with O(1) state. Weights are
+random, drawn from ``--seed``. Configs whose ``input_mode`` is
+``embeds`` (llava-next-34b, musicgen-large: their image or audio frontend
+is a stub) take random bf16 prompt embeddings instead of tokens.
 
 ``--temperature`` differs from the reference on purpose. The reference's
 decode loop passes no key to its decode step, so its ``sample_token``
@@ -65,17 +67,28 @@ def run(argv=None) -> Dict[str, Any]:
     dev = resolve_device(args.device)
     cfg = (configs.reduced_config(args.arch) if args.reduced
            else configs.get_config(args.arch))
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: input_mode "
-                                  f"{cfg.input_mode!r} is not ported yet")
     slots = args.cache_slots or (args.prompt_len + args.gen)
     # weights from seed, prompts from seed + 1, sampling noise from seed + 2
     params = T.init_model(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     b, s = args.batch, args.prompt_len
-    tokens = torch.randint(
-        0, cfg.vocab, (b, s), device=dev,
-        generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
+    prompt_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    if cfg.input_mode == "embeds":
+        prompts = torch.randn((b, s, cfg.d_model), device=dev,
+                              generator=prompt_gen).to(torch.bfloat16)
+        batch = {"embeds": prompts}
+        # every decode step is fed one and the same draw: the reference's
+        # step input is normal(fold_in(ks, 0)), a constant key, so its
+        # stub frontend repeats one embedding; the port mirrors that rather
+        # than choosing an input of its own
+        step_embeds = torch.randn((b, 1, cfg.d_model), device=dev,
+                                  generator=prompt_gen).to(torch.bfloat16)
+        step_inp = lambda tok: {"embeds": step_embeds}  # noqa: E731
+    else:
+        prompts = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                                generator=prompt_gen)
+        batch = {"tokens": prompts}
+        step_inp = lambda tok: {"tokens": tok[:, None]}  # noqa: E731
     generator = (torch.Generator(device=dev).manual_seed(args.seed + 2)
                  if args.temperature > 0 else None)
 
@@ -84,7 +97,7 @@ def run(argv=None) -> Dict[str, Any]:
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": tokens})
+    logits, caches = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tok = engine.sample_token(logits)
@@ -92,8 +105,8 @@ def run(argv=None) -> Dict[str, Any]:
     out_tokens = [tok]
     t0 = time.perf_counter()
     for i in range(args.gen - 1):
-        tok, logits, caches = decode(params, caches, {"tokens": tok[:, None]},
-                                     s + i, generator)
+        tok, logits, caches = decode(params, caches, step_inp(tok), s + i,
+                                     generator)
         out_tokens.append(tok)
     _sync(dev)
     t_decode = time.perf_counter() - t0
@@ -110,7 +123,7 @@ def run(argv=None) -> Dict[str, Any]:
         print(f"[serve] row {row}: {gen[row].tolist()}")
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("non-finite logits")
-    return {"cfg": cfg, "params": params, "prompts": tokens,
+    return {"cfg": cfg, "params": params, "prompts": prompts,
             "generated": gen, "logits": logits, "caches": caches,
             "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
             "decode_steps": steps}

@@ -1,9 +1,9 @@
-"""RWKV6 (Finch) blocks (port of the RWKV part of ``repro.models.ssm``).
+"""RWKV6 (Finch) and Mamba blocks (port of ``repro.models.ssm``).
 
-Prefill and chunked prefill run the WKV recurrence over the whole sequence
-on the hand-written kernel (``kernels.ssm_scan``: the state of every
-batch-head row spread over the card as register tiles); decode runs the
-O(1)-state single step of ``core.linear_attn.wkv_decode_step``. The
+RWKV prefill and chunked prefill run the WKV recurrence over the whole
+sequence on the hand-written kernel (``kernels.ssm_scan``: the state of
+every batch-head row spread over the card as register tiles); decode runs
+the O(1)-state single step of ``core.linear_attn.wkv_decode_step``. The
 recurrent state is the cache. The reference runs its prefill on the
 chunk-parallel jnp ``wkv_chunked``; the kernel computes the same function.
 
@@ -12,12 +12,19 @@ vectors plus the data-dependent decay (a low-rank MLP modulating w per
 token and channel), multi-head (dk = dv = head_dim) WKV with the
 current-token bonus ``u``, per-head groupnorm, and the squared-ReLU channel
 mix. The reference's two ``use_fold`` layouts compute the same thing on
-one device; the port keeps the folded (batch*heads) one. Mamba comes with
-the Mamba slice.
+one device; the port keeps the folded (batch*heads) one.
+
+Mamba follows mamba-1 as the reference does: in and gate projections, a
+depthwise causal conv, selective (dt, B, C) projections and the diagonal
+state update of ``core.linear_attn.mamba_chunked`` (prefill and chunks)
+or ``mamba_decode_step`` (decode). The reference has no Pallas kernel for
+it, so it runs as plain torch on the card too. ``dt``, ``A`` and ``D``
+stay fp32 whatever the model's dtype.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -196,3 +203,122 @@ def rwkv_channel_mix(params, x: Tensor, x_prev: Optional[Tensor] = None):
     y = torch.sigmoid(xr @ params["wr"].to(dt)) * \
         (kk @ params["wv"].to(dt))
     return y, x[:, -1].to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Mamba (S6) block
+# ---------------------------------------------------------------------------
+
+class MambaConfig(NamedTuple):
+    d_model: int
+    d_state: int = 16
+    expand: int = 2
+    conv_kernel: int = 4
+    scan_chunk: int = 64
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, -(-self.d_model // 16))
+
+
+def init_mamba(g, cfg: MambaConfig, device=None):
+    d, di, n, r = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.dt_rank
+    f32 = dict(dtype=torch.float32, device=device)
+    # S4D-real init for A; dt bias init for softplus ~ [1e-3, 1e-1]
+    a = torch.arange(1, n + 1, **f32)[None].expand(di, n)
+    u = torch.empty((di,), **f32)
+    if u.device.type != "meta":
+        u.uniform_(0.0, 1.0, generator=g)
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt_init = torch.exp(u * (hi - lo) + lo)
+    inv_softplus = dt_init + torch.log(-torch.expm1(-dt_init))
+    return {
+        "w_in": L.he_init(g, (d, 2 * di), d, device),
+        "conv_w": L.truncated_normal(g, (cfg.conv_kernel, di), 0.2, device),
+        "conv_b": torch.zeros((di,), **f32),
+        "w_x": L.he_init(g, (di, r + 2 * n), di, device),
+        "w_dt": L.he_init(g, (r, di), r, device),
+        "dt_bias": inv_softplus,
+        "a_log": torch.log(a),
+        "d_skip": torch.ones((di,), **f32),
+        "w_out": L.he_init(g, (di, d), di, device),
+    }
+
+
+def _causal_conv(x: Tensor, w: Tensor, b: Tensor,
+                 conv_state: Optional[Tensor] = None):
+    """Depthwise causal conv along time. x: (B, S, di); w: (K, di). The K
+    products are summed in ascending order, then the bias is added, as in
+    the reference.
+
+    Returns (y: (B, S, di), new_conv_state: (B, K-1, di) fp32)."""
+    kk = w.shape[0]
+    if conv_state is None:
+        conv_state = x.new_zeros((x.shape[0], kk - 1, x.shape[-1]))
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s] * w[i].to(x.dtype) for i in range(kk))
+    new_state = xp[:, -(kk - 1):].to(torch.float32)
+    return y + b.to(x.dtype), new_state
+
+
+def _selective_inputs(params, cfg: MambaConfig, xi: Tensor):
+    """(dt fp32, a fp32, b_in, c_in) from the conv output ``xi``: dt is
+    softplus of the fp32 low-rank product with the fp32 master ``w_dt``
+    (``logaddexp(z, 0)``, the reference's softplus)."""
+    r, n = cfg.dt_rank, cfg.d_state
+    proj = xi @ params["w_x"].to(xi.dtype)
+    dt_low, b_in, c_in = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
+    z = dt_low.to(torch.float32) @ params["w_dt"] + params["dt_bias"]
+    dt = torch.logaddexp(z, torch.zeros((), device=z.device))
+    return dt, -torch.exp(params["a_log"]), b_in, c_in
+
+
+def mamba_block(params, cfg: MambaConfig, x: Tensor,
+                state: Optional[dict] = None, chunk: Optional[int] = None):
+    """x: (B, S, D). state = {"conv": (B, K-1, di), "h": (B, di, n)}.
+    Returns (y (B, S, D), new_state)."""
+    di = cfg.d_inner
+    dt_ = x.dtype
+    xz = x @ params["w_in"].to(dt_)
+    xi, z = xz[..., :di], xz[..., di:]
+    conv_state = state["conv"] if state is not None else None
+    xi, new_conv = _causal_conv(xi, params["conv_w"], params["conv_b"],
+                                conv_state)
+    xi = F.silu(xi)
+    dt, a, b_in, c_in = _selective_inputs(params, cfg, xi)
+    h0 = state["h"] if state is not None else None
+    y, h_fin = la.mamba_chunked(xi, dt, a, b_in, c_in, params["d_skip"],
+                                h0, chunk=chunk or cfg.scan_chunk)
+    y = (y.to(dt_) * F.silu(z)) @ params["w_out"].to(dt_)
+    return y, {"conv": new_conv, "h": h_fin}
+
+
+def mamba_block_decode(params, cfg: MambaConfig, x: Tensor, state: dict):
+    """Single-token decode: x (B, 1, D). The conv runs over the ring of the
+    last K-1 inputs and this one (the reference's ``bkd,kd->bd``)."""
+    di = cfg.d_inner
+    dt_ = x.dtype
+    xz = (x @ params["w_in"].to(dt_))[:, 0]
+    xi, z = xz[..., :di], xz[..., di:]
+    window = torch.cat([state["conv"].to(dt_), xi[:, None]], dim=1)
+    y = (torch.einsum("bkd,kd->bd", window, params["conv_w"].to(dt_))
+         + params["conv_b"].to(dt_))
+    new_conv = window[:, 1:].to(torch.float32)
+    xi = F.silu(y)
+    dt, a, b_in, c_in = _selective_inputs(params, cfg, xi)
+    yd, h = la.mamba_decode_step(xi, dt, a, b_in, c_in, params["d_skip"],
+                                 state["h"])
+    out = (yd.to(dt_) * F.silu(z)) @ params["w_out"].to(dt_)
+    return out[:, None], {"conv": new_conv, "h": h}
+
+
+def init_mamba_state(batch: int, cfg: MambaConfig, device=None):
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"conv": torch.zeros((batch, cfg.conv_kernel - 1, cfg.d_inner),
+                                **f32),
+            "h": torch.zeros((batch, cfg.d_inner, cfg.d_state), **f32)}

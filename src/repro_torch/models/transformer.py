@@ -1,8 +1,7 @@
-"""The decoder (port of ``repro.models.transformer``), for the families this
-port runs so far: the ``attn`` mixer (``models.attention``) and the
-``rwkv`` mixer, with the ``dense`` or ``rwkv_ffn`` MLP (gemma, deepseek,
-qwen2.5, gemma3, RWKV6). Mamba and MoE layers raise
-``NotImplementedError``.
+"""The decoder (port of ``repro.models.transformer``) for all ten
+configs: the ``attn`` (``models.attention``), ``rwkv`` and ``mamba``
+(``models.ssm``) mixers with the ``dense``, ``moe`` (``models.moe``) or
+``rwkv_ffn`` MLP, on token or embedding inputs.
 
 Parameters are a ``Model``: one ``nn.Module`` per layer, each a
 ``ParamTree`` holding the reference's leaf names (``norm1``, ``attn``,
@@ -10,7 +9,8 @@ Parameters are a ``Model``: one ``nn.Module`` per layer, each a
 the reference's ``lax.scan`` over periods has no counterpart here. Caches
 keep the reference's layout: a dict keyed by pattern position (``p0``...),
 each leaf stacked over periods (attention layers hold ``KVCache`` ring
-buffers), so they compare leaf for leaf with the JAX package's.
+buffers, Mamba layers their conv ring and state ``h``), so they compare
+leaf for leaf with the JAX package's.
 
 Modes:
   * train    - full-sequence forward, returns (logits, aux_loss, None).
@@ -21,6 +21,8 @@ Modes:
 On the card, train and prefill run the kernels: ``flash_attention`` for
 every attention layer and ``ssm_scan`` for every RWKV layer. A decode step
 and a chunk attend over the cache with the plain ``blockwise_attention``.
+The Mamba scan and the MoE dispatch have no kernel in the reference and
+run as plain torch everywhere.
 """
 
 from __future__ import annotations
@@ -35,18 +37,10 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 
 Tensor = torch.Tensor
-
-#: the slice of the port (ROADMAP queue 1) that brings each part
-_WAITS = {"mamba": "the Mamba slice", "moe": "the MoE slice"}
-
-
-def _not_ported(what: str, name: str):
-    raise NotImplementedError(
-        f"{what} {name!r} is not ported yet: it comes with {_WAITS[name]} "
-        "(ROADMAP queue 1)")
 
 
 class ParamTree(nn.Module):
@@ -100,9 +94,23 @@ def _attn_cfg(cfg: ModelConfig, spec: LayerSpec) -> attention.AttnConfig:
         window=spec.window, kv_block=cfg.kv_block)
 
 
+def _moe_cfg(cfg: ModelConfig) -> moe_lib.MoEConfig:
+    return moe_lib.MoEConfig(
+        d_model=cfg.d_model, d_ff=cfg.moe_d_ff or cfg.d_ff,
+        num_experts=cfg.num_experts,
+        experts_per_token=cfg.experts_per_token,
+        capacity_factor=cfg.capacity_factor, act=cfg.act)
+
+
 def _rwkv_cfg(cfg: ModelConfig) -> ssm.RWKVConfig:
     return ssm.RWKVConfig(d_model=cfg.d_model, head_dim=cfg.rwkv_head_dim,
                           scan_chunk=cfg.scan_chunk)
+
+
+def _mamba_cfg(cfg: ModelConfig) -> ssm.MambaConfig:
+    return ssm.MambaConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                           expand=cfg.ssm_expand,
+                           scan_chunk=cfg.scan_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -117,16 +125,16 @@ def _init_layer(g, cfg: ModelConfig, spec: LayerSpec, device):
         p["attn"] = attention.init_attention(g, _attn_cfg(cfg, spec), device)
     elif spec.mixer == "rwkv":
         p["rwkv"] = ssm.init_rwkv_time_mix(g, _rwkv_cfg(cfg), device)
-    elif spec.mixer in _WAITS:
-        _not_ported("mixer", spec.mixer)
+    elif spec.mixer == "mamba":
+        p["mamba"] = ssm.init_mamba(g, _mamba_cfg(cfg), device)
     else:
         raise ValueError(spec.mixer)
     if spec.mlp == "dense":
         p["mlp"] = L.init_mlp(g, d, cfg.d_ff, device)
+    elif spec.mlp == "moe":
+        p["moe"] = moe_lib.init_moe(g, _moe_cfg(cfg), device)
     elif spec.mlp == "rwkv_ffn":
         p["rwkv_ffn"] = ssm.init_rwkv_channel_mix(g, d, cfg.d_ff, device)
-    elif spec.mlp in _WAITS:
-        _not_ported("mlp", spec.mlp)
     else:
         raise ValueError(spec.mlp)
     return p
@@ -156,6 +164,17 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def param_count(params: Model) -> int:
     return int(sum(p.numel() for p in params.parameters()))
+
+
+def active_param_count(params: Model, cfg: ModelConfig) -> int:
+    """6*N_active*D accounting for MoE: experts count at k/E of their size."""
+    total = 0
+    for name, p in params.named_parameters():
+        n = p.numel()
+        if "expert_" in name and cfg.num_experts:
+            n = n * cfg.experts_per_token // cfg.num_experts
+        total += n
+    return int(total)
 
 
 # ---------------------------------------------------------------------------
@@ -197,8 +216,17 @@ def _apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
             y, st = ssm.rwkv_time_mix(p["rwkv"], rcfg, h, None,
                                       use_kernels=use_kernels)
         new_cache = {"rwkv": st}
-    elif spec.mixer in _WAITS:
-        _not_ported("mixer", spec.mixer)
+    elif spec.mixer == "mamba":
+        mcfg = _mamba_cfg(cfg)
+        if mode == "decode":
+            if h.shape[1] == 1:
+                y, st = ssm.mamba_block_decode(p["mamba"], mcfg, h,
+                                               cache["mamba"])
+            else:       # chunked prefill: the state-carried scan
+                y, st = ssm.mamba_block(p["mamba"], mcfg, h, cache["mamba"])
+        else:
+            y, st = ssm.mamba_block(p["mamba"], mcfg, h, None)
+        new_cache = {"mamba": st}
     else:
         raise ValueError(spec.mixer)
     x = x + y
@@ -207,14 +235,14 @@ def _apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.mlp == "dense":
         y2 = L.mlp(p["mlp"], h2, act=cfg.act)
+    elif spec.mlp == "moe":
+        y2, aux = moe_lib.moe(p["moe"], _moe_cfg(cfg), h2)
     elif spec.mlp == "rwkv_ffn":
         x_prev = cache.get("ffn_x") if (cache and mode == "decode") else None
         y2, ffn_x = ssm.rwkv_channel_mix(p["rwkv_ffn"], h2, x_prev)
         if new_cache is None:
             new_cache = {}
         new_cache["ffn_x"] = ffn_x
-    elif spec.mlp in _WAITS:
-        _not_ported("mlp", spec.mlp)
     else:
         raise ValueError(spec.mlp)
     x = x + y2
@@ -333,7 +361,9 @@ def init_caches(cfg: ModelConfig, batch: int, slots: int,
     view spans all ``slots`` (global attention, or a window >= slots), and
     ``paged_window_attn`` for the sliding-window layers with a shorter
     ring: those leaves live in the block pools of the paged slot backing
-    (``serve.slots``). RWKV state always stays dense."""
+    (``serve.slots``). RWKV and Mamba state always stays dense: Mamba's
+    ``conv`` ring (periods, batch, K-1, d_inner) and ``h`` (periods, batch,
+    d_inner, d_state), both fp32."""
     dev = resolve_device(device)
     np_, d = cfg.num_periods, cfg.d_model
     f32 = dict(dtype=torch.float32, device=dev)
@@ -357,8 +387,13 @@ def init_caches(cfg: ModelConfig, batch: int, slots: int,
                 "rwkv": {"s": torch.zeros((np_, batch, h, hd, hd), **f32),
                          "x_prev": torch.zeros((np_, batch, d), **f32)},
                 "ffn_x": torch.zeros((np_, batch, d), **f32)}
-        elif spec.mixer in _WAITS:
-            _not_ported("mixer", spec.mixer)
+        elif spec.mixer == "mamba":
+            mcfg = _mamba_cfg(cfg)
+            caches[f"p{i}"] = {"mamba": {
+                "conv": torch.zeros((np_, batch, mcfg.conv_kernel - 1,
+                                     mcfg.d_inner), **f32),
+                "h": torch.zeros((np_, batch, mcfg.d_inner, mcfg.d_state),
+                                 **f32)}}
         else:
             raise ValueError(spec.mixer)
     return caches

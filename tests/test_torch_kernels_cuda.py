@@ -769,3 +769,89 @@ def test_attention_prefill_is_one_launch_per_layer(cuda, arch):
     TT.apply_model(params, cfg, tokens=toks[:, :1], mode="decode", caches=c,
                    pos_scalar=40)
     assert KF.launches == before + cfg.num_layers   # decode: plain torch
+
+
+# the attention shapes of the MoE, hybrid and embeds models at a 2,048-token
+# prefill: olmoe-1b-7b (MHA, hd 128), jamba-v0.1-52b (GQA 32:8, hd 128),
+# musicgen-large (MHA, hd 64), in the model's (B, S, heads, hd) layout
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,hd", [(16, 16, 128), (32, 8, 128),
+                                      (32, 32, 64)],
+                         ids=["olmoe", "jamba", "musicgen"])
+def test_flash_attention_at_the_moe_and_hybrid_shapes(cuda, h, kvh, hd,
+                                                      dtype):
+    g = torch.Generator(device=cuda).manual_seed(h + kvh + hd)
+    q = torch.randn((1, 2048, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((1, 2048, kvh, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, 2048, kvh, hd), generator=g, device=cuda).to(dtype)
+    before = KF.launches
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KF.launches == before + 1
+    want = KF.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2)).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-v0.1-52b"])
+def test_moe_and_hybrid_prefill_is_one_launch_per_attention_layer(cuda,
+                                                                  arch):
+    """Reduced olmoe and jamba on the card in fp32: one flash_attention
+    launch per attention layer in a prefill, none in a chunk or a decode
+    step (the Mamba scan and the MoE dispatch are plain torch), and the
+    kernel's prefill equal to the plain one's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(configs.reduced_config(arch),
+                              dtype=torch.float32)
+    n_attn = cfg.num_periods * sum(s.mixer == "attn" for s in cfg.pattern)
+    params = TT.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda)
+    before = KF.launches
+    on, aux_on, c_on = TT.apply_model(params, cfg, tokens=toks[:, :37],
+                                      mode="prefill", cache_slots=48)
+    assert KF.launches == before + n_attn
+    off, aux_off, c_off = TT.apply_model(params, cfg, tokens=toks[:, :37],
+                                         mode="prefill", cache_slots=48,
+                                         use_kernels=False)
+    assert KF.launches == before + n_attn
+    torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux_on, aux_off, rtol=1e-5, atol=1e-6)
+    c = TT.init_caches(cfg, 2, 48, per_slot_pos=True, device=cuda)
+    _, _, c = TT.apply_model(params, cfg, tokens=toks[:, :37],
+                             mode="decode", caches=c,
+                             pos_scalar=torch.zeros(2, dtype=torch.int64,
+                                                    device=cuda))
+    TT.apply_model(params, cfg, tokens=toks[:, 37:38], mode="decode",
+                   caches=c, pos_scalar=torch.full((2,), 37, device=cuda))
+    assert KF.launches == before + n_attn
+
+
+def test_moe_dispatch_on_the_card_equals_the_cpu(cuda):
+    """Tight capacity (dropped entries clamped onto kept ones) on the card
+    and on the CPU: the same routing, the same drops and outputs within
+    fp32 reassociation; the accumulating scatter adds zeros, so nothing
+    depends on the order of its atomics."""
+    from repro_torch.models import moe as TM
+    cfg = TM.MoEConfig(d_model=64, d_ff=96, num_experts=8,
+                       experts_per_token=2, capacity_factor=0.5)
+    params = TM.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.randn((2, 64, 64), generator=torch.Generator().manual_seed(1))
+    want, want_aux = TM.moe(params, cfg, x)
+    on = {k: v.to(cuda) for k, v in params.items()}
+    got, got_aux = TM.moe(on, cfg, x.to(cuda))
+    xt = x.reshape(-1, 64)
+    _, tp, te = TM._router(params, cfg, xt)
+    _, tpc, tec = TM._router(on, cfg, xt.to(cuda))
+    assert torch.equal(te, tec.cpu())
+    c = TM.capacity(xt.shape[0], cfg)
+    keep = TM._local_dispatch(xt, te, tp, 8, c)[1][2]
+    keep_c = TM._local_dispatch(xt.to(cuda), tec, tpc, 8, c)[1][2]
+    assert torch.equal(keep, keep_c.cpu()) and not bool(keep.all())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5,
+                               atol=1e-7)
+    again, _ = TM.moe(on, cfg, x.to(cuda))
+    assert torch.equal(again, got)

@@ -111,27 +111,40 @@ def test_every_config_equals_the_reference(arch):
         TC.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "Mamba")])
-def test_families_of_later_slices_raise(arch, what):
-    cfg = TC.reduced_config(arch)
-    with pytest.raises(NotImplementedError, match=what):
-        TT.init_model(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match=what):
-        TT.init_caches(cfg, 1, 8, device="cpu")
-
-
-def test_moe_still_waits_but_its_attention_caches_build():
-    """olmoe's reduced layers are attention + MoE: the MoE MLP is not
-    ported, but its caches are attention caches only."""
-    cfg = TC.reduced_config("olmoe-1b-7b")
-    assert {(s.mixer, s.mlp) for s in cfg.pattern} == {("attn", "moe")}
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.init_model(cfg, device="meta")
+def _builds_as_the_reference(arch):
+    """The reduced ``arch`` on ``meta`` has the reference's parameter count,
+    and its decode caches equal the reference's leaf for leaf."""
+    cfg, rcfg = TC.reduced_config(arch), RC.reduced_config(arch)
+    model = TT.init_model(cfg, device="meta")
+    assert TT.param_count(model) == RT.param_count(jax.eval_shape(
+        lambda: RT.init_model(jax.random.PRNGKey(0), rcfg)))
     got = TT.init_caches(cfg, 2, 8, device="cpu")
-    want = RT.init_caches(RC.reduced_config("olmoe-1b-7b"), 2, 8)
+    want = RT.init_caches(rcfg, 2, 8)
     _close_trees(jax.tree_util.tree_map(lambda t: t.float(), got),
                  jax.tree_util.tree_map(lambda a: a.astype(jnp.float32),
                                         want), rtol=0, atol=0)
+    return cfg, got
+
+
+@pytest.mark.parametrize("arch,what", [("jamba-v0.1-52b", "Mamba")])
+def test_families_of_later_slices_raise(arch, what):
+    """The families that waited for a later slice (Mamba, MoE) now build:
+    jamba's Mamba layers carry their O(1) conv ring and state."""
+    cfg, caches = _builds_as_the_reference(arch)
+    mixers = {s.mixer for s in cfg.pattern}
+    assert what.lower() in mixers
+    for i, spec in enumerate(cfg.pattern):
+        if spec.mixer == "mamba":
+            assert sorted(caches[f"p{i}"]["mamba"]) == ["conv", "h"]
+
+
+def test_moe_still_waits_but_its_attention_caches_build():
+    """olmoe's reduced layers are attention + MoE: the model builds with
+    the reference's parameter count, and its caches are attention caches
+    only."""
+    cfg, caches = _builds_as_the_reference("olmoe-1b-7b")
+    assert {(s.mixer, s.mlp) for s in cfg.pattern} == {("attn", "moe")}
+    assert all(sorted(c) == ["attn"] for c in caches.values())
 
 
 def test_gemma_2b_builds():
