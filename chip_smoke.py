@@ -43,7 +43,13 @@ scheduler on contiguous slots and on the paged pool against per-request
 ``generate`` (drop-free, routing pinned for the gates, free runs counted),
 bf16 serving and a profiled prefill split by part (experts, dispatch,
 Mamba scan, ``flash_attention``); and ``musicgen-large`` served through
-``launch.serve`` on prompt embeddings.
+``launch.serve`` on prompt embeddings. Last, training: the backward
+kernels of ``flash_attention`` and ``ssm_scan`` against their plain
+backwards (fp32 and bf16, each twice, bitwise), an fp32 train step with the
+kernels on against off, ``gemma-2b`` (batch 2 x 2,048) and ``rwkv6-1.6b``
+(4 x 2,048) trained in bf16 through ``launch.train`` at full width and
+depth with every kernel launch counted, and an exact resume after an
+injected failure on a 2-layer cut of ``rwkv6-1.6b``.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -52,8 +58,8 @@ repository's ``src/`` beside it. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is a JSON object with
 one entry per kernel, the SpMV and NW numbers (``paper_kernels``), the
 LM paths' serving numbers (``lm``, ``attn_lm``, ``ring_lm``,
-``spec_ring_lm``, ``moe_lm``, ``hybrid_lm``, ``embeds_lm``) and the
-autotune re-sweep (``obs_autotune``).
+``spec_ring_lm``, ``moe_lm``, ``hybrid_lm``, ``embeds_lm``), the
+autotune re-sweep (``obs_autotune``) and training (``train_lm``).
 """
 
 from __future__ import annotations
@@ -1038,10 +1044,22 @@ def rank_path(sort_traffic, dev):
             "torch_sort_1m_ms": lib_ms}
 
 
+def profiled_again(fn, tries=3):
+    """profiled(fn) for an fn that may run again: a window in which the
+    profiler recorded no device event at all is taken again, up to
+    ``tries`` windows (on that machine CUPTI now and then returns an empty
+    window; a window with events is never retaken)."""
+    for _ in range(tries):
+        wall, spans = profiled(fn)
+        if spans:
+            break
+    return wall, spans
+
+
 def kernel_device_us(fn, name, n=20):
     """Mean device microseconds of the kernels whose name holds ``name``
     over n calls of fn, from the profiler."""
-    _, spans = profiled(lambda: [fn() for _ in range(n)])
+    _, spans = profiled_again(lambda: [fn() for _ in range(n)])
     times = [e - st for st, e, nm in spans if name in nm]
     check(bool(times), f"the profiler saw no {name} in {n} calls")
     return statistics.mean(times)
@@ -1101,7 +1119,7 @@ def radix_times(dev, n_chunks, g) -> dict:
     # and then, so: every event it saw is a histogram or a pass kernel,
     # at least one call shows whole (histogram, then 4 passes), and the
     # times come from the whole calls.
-    spans = profiled(lambda: [sort() for _ in range(5)])[1]
+    _, spans = profiled_again(lambda: [sort() for _ in range(5)])
     kinds = ["hist" if "radix_hist_kernel" in nm
              else "pass" if "rank_tiles_kernel" in nm else nm
              for _, _, nm in spans]
@@ -1128,7 +1146,7 @@ def radix_times(dev, n_chunks, g) -> dict:
     lib = lambda: torch.sort(keys, dim=1, stable=True)  # noqa: E731
     r["torch_sort_ms"] = time_cuda(lib, reps=20)
     r["torch_sort_device_us"] = busy_us(
-        profiled(lambda: [lib() for _ in range(5)])[1]) / 5
+        profiled_again(lambda: [lib() for _ in range(5)])[1]) / 5
     log(f"[time] radix ({n_chunks}, {lc}), tile {r['tile']}: radix_rank "
         f"{r['rank_ms']:.4f} ms ({r['rank_device_us']:.2f} us device, "
         f"{r['rank_ctas']} CTAs; by tile {r['rank_device_us_by_tile']}), "
@@ -4195,6 +4213,522 @@ def embeds_phase(dev, seed) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: training. The two backward kernels against their plain
+# backwards (and bitwise across two launches), an fp32 train step with the
+# kernels on against off, gemma-2b (batch 2 x 2,048) and rwkv6-1.6b (4 x
+# 2,048) trained in bf16 through launch.train at full width and depth, and
+# an exact resume after an injected failure on a 2-layer cut of rwkv6-1.6b
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS = 3
+TRAIN_BATCH = {"gemma-2b": 2, "rwkv6-1.6b": 4}
+TRAIN_SEQ = 2048
+# (B, H, KV, Sq, Skv, hd, window) of the flash_attention backward checks
+FLASH_BWD_SHAPES = (
+    (2, 8, 1, 2048, 2048, 256, 0),   # gemma-2b's train step (batch 2)
+    (2, 4, 4, 128, 128, 64, 0),      # MHA
+    (1, 8, 2, 256, 256, 32, 0),      # GQA 4:1
+    (1, 4, 2, 256, 256, 64, 96),     # window 96
+    (2, 4, 2, 300, 300, 16, 0),      # ragged, hd 16
+    (1, 8, 1, 1537, 1537, 256, 0),   # ragged at gemma-2b's heads
+    (1, 40, 8, 1000, 1000, 128, 0),  # hd 128, GQA 5:1, ragged
+    (1, 4, 2, 200, 333, 64, 0),      # Skv > Sq
+    (1, 4, 2, 333, 200, 64, 50))     # Sq > Skv, window: rows that see nothing
+# (B, T, dk, dv, with u, s0 and the final state's gradient) of the ssm_scan
+# backward checks
+SCAN_BWD_SHAPES = ((128, 2048, 64, 64, False),   # rwkv6-1.6b: 4 x 32 heads
+                   (1, 1000, 16, 16, True),
+                   (3, 96, 8, 24, True),
+                   (2, 33, 5, 7, True),          # dk, dv not multiples of 4
+                   (2, 50, 64, 128, True),       # dv at its largest
+                   (4, 17, 1, 1, True))
+# fp32: kernel and plain backward sum in other orders (the scan's over 2,048
+# steps, attention's over up to 16,384 (q, head) terms of dK and dV), so
+# they differ far below 1e-4 of the largest gradient; bf16 attention as the
+# forward's FLASH_TOL (every product in fp32, the outputs rounded once)
+SCAN_BWD_TOL = 1e-4                 # of max(1, max |plain|), per gradient
+TRAIN_ON_OFF_RTOL = {"loss": 1e-5, "grad_norm": 1e-4}
+RESUME_LAYERS = 2
+RESUME_STEPS, RESUME_FAIL_AT, RESUME_CKPT_EVERY = 4, 3, 2
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in fp32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def check_flash_bwd(dev) -> dict:
+    """The forward kernels' row log-sum-exp against the plain one, then the
+    backward kernels against flash_attention_bwd_plain on the same (q, k,
+    v, o, lse, dO), fp32 and bf16, at FLASH_BWD_SHAPES within FLASH_TOL,
+    each twice (bitwise equal); then the autograd Function on the card
+    against autograd through the plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    err, rows = 0.0, []
+    for shape in FLASH_BWD_SHAPES:
+        win = shape[-1]
+        for name, tol in FLASH_TOL.items():
+            dt = getattr(torch, name)
+            q, k, v = attn_inputs(shape, dt, g, dev)
+            do = torch.randn(q.shape, generator=g, device=dev).to(dt)
+            out, lse = KF._forward(q, k, v, win, with_lse=True)
+            _, want_lse = KF.flash_attention_fwd_plain(q, k, v, win)
+            fin = torch.isfinite(want_lse)
+            lse_ok = bool(torch.equal(fin, torch.isfinite(lse))) and bool(
+                torch.allclose(lse[fin], want_lse[fin], rtol=1e-5, atol=1e-4))
+            lse_err = float((lse[fin] - want_lse[fin]).abs().max()) \
+                if bool(fin.any()) else 0.0
+            got = KF._backward(q, k, v, out, lse, do, win)
+            again = KF._backward(q, k, v, out, lse, do, win)
+            want = KF.flash_attention_bwd_plain(q, k, v, out, lse, do, win)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want)]
+            close = all(a.dtype == b.dtype and torch.allclose(
+                a.float(), b.float(), rtol=tol, atol=tol)
+                for a, b in zip(got, want))
+            err = max(err, *errs)
+            rows.append({"shape": list(shape), "dtype": name, "ok": close,
+                         "bitwise_twice": same, "max_abs_err": errs,
+                         "lse_err": lse_err})
+            log(f"[train] flash_attention bwd {shape} {name}: allclose(rtol="
+                f"atol={tol})={close} max_abs_err dq/dk/dv={errs} max|grad|="
+                f"{[round(float(w.float().abs().max()), 3) for w in want]}; "
+                f"two launches bitwise equal={same}; lse ok={lse_ok} "
+                f"(max err {lse_err})")
+            check(lse_ok, f"flash_attention lse {shape} {name} differs from "
+                  "the plain one")
+            check(close, f"flash_attention backward {shape} {name} differs "
+                  "from its plain version")
+            check(same, f"flash_attention backward {shape} {name}: two "
+                  "launches differ")
+            del q, k, v, do, out, lse, got, again, want
+    # the Function on the card: the forward kernel with lse, the backward
+    # kernels, against autograd through the plain version
+    shape = (2, 4, 2, 300, 300, 64, 0)
+    q, k, v = (x.requires_grad_() for x in attn_inputs(shape, torch.float32,
+                                                       g, dev))
+    do = torch.randn(q.shape, generator=g, device=dev)
+    f0, b0 = KF.launches, KF.bwd_launches
+    got = torch.autograd.grad(KF.flash_attention(q, k, v), (q, k, v), do)
+    f1, b1 = KF.launches - f0, KF.bwd_launches - b0
+    want = torch.autograd.grad(KF.flash_attention_plain(q, k, v), (q, k, v),
+                               do)
+    fn_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    log(f"[train] FlashAttention (autograd) on the card: {f1} forward and "
+        f"{b1} backward launches; against autograd of the plain version "
+        f"max_abs_err {fn_err}")
+    check(f1 == 1 and b1 == 1 and fn_err <= 1e-4,
+          "FlashAttention's gradient on the card differs from autograd")
+    return {"max_abs_err": err, "shapes": rows, "function_err": fn_err}
+
+
+def check_ssm_bwd(dev) -> dict:
+    """The ssm_scan backward kernel against ssm_scan_bwd_plain at
+    SCAN_BWD_SHAPES (rel_err within SCAN_BWD_TOL per gradient), twice
+    (bitwise equal); then the autograd Function against autograd through
+    the plain scan."""
+    import torch
+    from repro_torch.kernels import ssm_scan as KS
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    err, rows = 0.0, []
+    names = ("dr", "dw", "dk", "dv", "du", "ds0")
+    for b, t, dk, dv, full in SCAN_BWD_SHAPES:
+        r, w, k, v, u, s0 = wkv_inputs(b, t, dk, dv, g, dev, full)
+        if not full:
+            u = None
+        dy = torch.randn((b, t, dv), generator=g, device=dev)
+        dsf = (torch.randn((b, dk, dv), generator=g, device=dev) if full
+               else None)
+        got = KS._backward(r, w, k, v, u, s0, dy, dsf)
+        again = KS._backward(r, w, k, v, u, s0, dy, dsf)
+        want = KS.ssm_scan_bwd_plain(r, w, k, v, u, s0, dy, dsf)
+        torch.cuda.synchronize()
+        same = all((a is None and c is None) or torch.equal(a, c)
+                   for a, c in zip(got, again))
+        errs = {n: rel_err(a, c) for n, a, c in zip(names, got, want)
+                if c is not None}
+        ok = all(e <= SCAN_BWD_TOL for e in errs.values())
+        err = max(err, *errs.values())
+        rows.append({"shape": [b, t, dk, dv], "u_s0_dsfinal": full,
+                     "ok": ok, "bitwise_twice": same, "rel_err": errs})
+        log(f"[train] ssm_scan bwd {(b, t, dk, dv)} u/s0/ds_final="
+            f"{full}: rel_err {errs} (tol {SCAN_BWD_TOL}); two launches "
+            f"bitwise equal={same}")
+        check(ok, f"ssm_scan backward {(b, t, dk, dv)} differs from its "
+              "plain version")
+        check(same, f"ssm_scan backward {(b, t, dk, dv)}: two launches "
+              "differ")
+    r, w, k, v, u, s0 = (x.requires_grad_() for x in
+                         wkv_inputs(2, 300, 16, 24, g, dev, True))
+    dy = torch.randn((2, 300, 24), generator=g, device=dev)
+    f0, b0 = KS.launches, KS.bwd_launches
+    y, _ = KS.ssm_scan(r, w, k, v, u, s0)
+    got = torch.autograd.grad(y, (r, w, k, v, u, s0), dy)
+    f1, b1 = KS.launches - f0, KS.bwd_launches - b0
+    y2, _ = KS.ssm_scan_plain(r, w, k, v, u, s0)
+    want = torch.autograd.grad(y2, (r, w, k, v, u, s0), dy)
+    fn_err = max(rel_err(a, c) for a, c in zip(got, want))
+    log(f"[train] SSMScan (autograd) on the card: {f1} forward and {b1} "
+        f"backward launches; against autograd of the plain scan rel_err "
+        f"{fn_err}")
+    check(f1 == 1 and b1 == 1 and fn_err <= SCAN_BWD_TOL,
+          "SSMScan's gradient on the card differs from autograd")
+    return {"max_rel_err": err, "shapes": rows, "function_err": fn_err}
+
+
+def flash_bwd_entry(dev, errs, launches) -> dict:
+    """Times of the flash_attention backward at gemma-2b's train shape,
+    bf16 (the train path's type) and fp32, beside its bound (2.5x the
+    forward's operations), its plain version and the backward of
+    scaled_dot_product_attention under autograd (timed here only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as KF
+
+    shape = FLASH_BWD_SHAPES[0]
+    b, h, kvh, s, _, hd, win = shape
+    g = torch.Generator(device=dev).manual_seed(23)
+    pairs = b * h * s * (s + 1) // 2
+    flops = 10 * hd * pairs                    # 2.5 x the forward's 4 hd
+    out = {}
+    for name, ops_s in (("bfloat16", BF16_OPS_PER_S),
+                        ("float32", FP32_OPS_PER_S)):
+        dt = getattr(torch, name)
+        q, k, v = attn_inputs(shape, dt, g, dev)
+        do = torch.randn(q.shape, generator=g, device=dev).to(dt)
+        o, lse = KF._forward(q, k, v, win, with_lse=True)
+        ms = time_cuda(lambda: KF._backward(q, k, v, o, lse, do, win),
+                       reps=5)
+        plain = time_cuda(lambda: KF.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, win), reps=1, rounds=3)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                            enable_gqa=True)
+        lib = time_cuda(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True), reps=5)
+        n_bytes = (2 * (q.numel() + k.numel() + v.numel())
+                   + o.numel() + do.numel()) * q.element_size() \
+            + lse.numel() * 4
+        b_ms, b_by = bound(n_bytes, flops, ops_s)
+        out[name] = (ms, plain, lib, b_ms, b_by, flops / ms / 1e9)
+        log(f"[time] flash_attention bwd {shape} {name}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.3f} ms, SDPA "
+            f"backward (autograd) {lib:.4f} ms, bound {b_ms:.6f} ms ({b_by}: "
+            f"{n_bytes} bytes, {flops} FLOP)")
+        del q, k, v, do, o, lse, ql, kl, vl, ol
+    ms, plain, lib, b_ms, b_by, tflops = out["bfloat16"]
+    f32 = out["float32"]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:83 (its "
+                        "gradient; the TPU kernel has no backward)",
+            "launches": launches, "max_abs_err": errs["max_abs_err"],
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib,
+            "library": "backward of torch.nn.functional.scaled_dot_product_"
+                       "attention(is_causal=True, enable_gqa=True) under "
+                       "autograd",
+            "shape": list(shape), "dtype": "bfloat16", "tflops": tflops,
+            "ms_fp32": f32[0], "plain_ms_fp32": f32[1],
+            "library_ms_fp32": f32[2], "bound_ms_fp32": f32[3],
+            "bound_by_fp32": f32[4], "shapes": errs["shapes"]}
+
+
+def ssm_bwd_entry(dev, errs, launches) -> dict:
+    """Times of the ssm_scan backward at rwkv6-1.6b's train shape beside
+    its bound, its plain version and the autograd backward of the chunked
+    torch form (core.linear_attn.wkv_chunked; no library call computes the
+    scan)."""
+    import torch
+    from repro_torch.core import linear_attn as TLA
+    from repro_torch.kernels import ssm_scan as KS
+
+    b, t, dk, dv, _ = SCAN_BWD_SHAPES[0]
+    g = torch.Generator(device=dev).manual_seed(24)
+    r, w, k, v, _, _ = wkv_inputs(b, t, dk, dv, g, dev, False)
+    dy = torch.randn((b, t, dv), generator=g, device=dev)
+    ms = time_cuda(lambda: KS._backward(r, w, k, v, None, None, dy, None),
+                   reps=5)
+    plain = time_cuda(lambda: KS.ssm_scan_bwd_plain(r, w, k, v, None, None,
+                                                    dy, None),
+                      reps=1, rounds=3)
+    xs = [x.detach().requires_grad_() for x in (r, w, k, v)]
+    yc, _ = TLA.wkv_chunked(*xs, None)
+    chunked = time_cuda(lambda: torch.autograd.grad(yc, xs, dy,
+                                                    retain_graph=True),
+                        reps=5)
+    # r, w, k, v and dy read once; dr, dw, dk, dv written once; per step and
+    # state element six multiply-adds: the state's recompute, G's two
+    # terms, and the dr, dk, dv and dw products
+    n_bytes = 4 * b * t * (3 * dk + 2 * dv + 3 * dk + dv)
+    b_ms, b_by = bound(n_bytes, 12 * b * t * dk * dv)
+    log(f"[time] ssm_scan bwd {(b, t, dk, dv)}: kernel {ms:.4f} ms, plain "
+        f"{plain:.3f} ms, wkv_chunked backward (autograd) {chunked:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by}); {ms / t * 1e6:.1f} ns per serial "
+        f"step")
+    return {"name": "ssm_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:58 (its gradient; the "
+                        "TPU kernel has no backward)",
+            "launches": launches, "max_abs_err": errs["max_rel_err"],
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "chunked_torch_bwd_ms": chunked,
+            "shape": [b, t, dk, dv], "ns_per_step": ms / t * 1e6,
+            "shapes": errs["shapes"]}
+
+
+def train_on_vs_off(dev, seed, arch, layers, batch) -> dict:
+    """One fp32 train step's loss and gradients at full width with the
+    kernels on (their backward kernels too) against off (the plain
+    versions under autograd), on the same weights and batch."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.lm import DataConfig, TokenStream
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ssm_scan as KS
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.train import step as TS
+
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, dtype=torch.float32,
+                              num_layers=layers or full.num_layers)
+    params = TT.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 200), dev)
+    params.requires_grad_(True)
+    data = TokenStream(DataConfig(vocab=cfg.vocab, batch=batch,
+                                  seq_len=TRAIN_SEQ, seed=seed), device=dev)
+    mb = data.batch(0)
+    res = {}
+    for on in (True, False):
+        counts = (KF.launches, KF.bwd_launches, KS.launches, KS.bwd_launches)
+        loss, _, _, grads = TS.loss_and_grads(params, cfg, mb,
+                                              use_kernels=on)
+        torch.cuda.synchronize()
+        n = [a - b for a, b in zip((KF.launches, KF.bwd_launches,
+                                    KS.launches, KS.bwd_launches), counts)]
+        _, gnorm = clip_by_global_norm(dict(grads), float("inf"))
+        res[on] = (float(loss), float(gnorm), grads, n)
+    worst = max(((name, rel_err(res[True][2][name], res[False][2][name]))
+                 for name in res[True][2]), key=lambda x: x[1])
+    d_loss = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    d_norm = abs(res[True][1] - res[False][1]) / res[False][1]
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": batch,
+           "loss": [res[True][0], res[False][0]],
+           "grad_norm": [res[True][1], res[False][1]],
+           "loss_rel": d_loss, "grad_norm_rel": d_norm,
+           "worst_leaf": worst[0], "worst_leaf_rel_err": worst[1],
+           "launches_on": res[True][3], "launches_off": res[False][3]}
+    log(f"[train] fp32 step {arch} ({cfg.num_layers} layers, {batch} x "
+        f"{TRAIN_SEQ}) kernels on/off: loss {res[True][0]} / {res[False][0]}"
+        f" (rel {d_loss:.3e}), grad norm {res[True][1]} / {res[False][1]} "
+        f"(rel {d_norm:.3e}); worst leaf {worst[0]} {worst[1]:.3e} of its "
+        f"max |g|; launches (flash fwd, bwd, scan fwd, bwd) on "
+        f"{res[True][3]}, off {res[False][3]}")
+    check(d_loss <= TRAIN_ON_OFF_RTOL["loss"]
+          and d_norm <= TRAIN_ON_OFF_RTOL["grad_norm"],
+          f"{arch} fp32 train step: kernels on and off disagree")
+    check(sum(res[False][3]) == 0 and any(res[True][3]),
+          f"{arch} fp32 train step: kernel launches on {res[True][3]}, off "
+          f"{res[False][3]}")
+    del params, res
+    return out
+
+
+def train_launch(dev, seed, arch) -> dict:
+    """launch.train at full width and depth in the config's bf16 for
+    TRAIN_STEPS steps (remat as the config has it), with the kernels'
+    launch counts at 0 just before and read just after; then one more step
+    timed, and one under the profiler for each kernel's share."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ssm_scan as KS
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import step as TS
+
+    base = memory_reset()
+    b = TRAIN_BATCH[arch]
+    KF.launches = KF.bwd_launches = KS.launches = KS.bwd_launches = 0
+    t0 = time.perf_counter()
+    run = LT.run(["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+                  str(b), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+                  "--warmup", "1", "--seed", str(seed)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": KF.launches,
+                "flash_attention_bwd": KF.bwd_launches,
+                "ssm_scan": KS.launches, "ssm_scan_bwd": KS.bwd_launches}
+    peak = peak_gb(base)
+    cfg, res = run["cfg"], run["result"]
+    state = res.state
+    n_attn = n_layers_of(cfg, lambda sp: sp.mixer == "attn")
+    n_rwkv = n_layers_of(cfg, lambda sp: sp.mixer == "rwkv")
+    fwd = 2 if cfg.remat else 1
+    want = {"flash_attention": fwd * n_attn * TRAIN_STEPS,
+            "flash_attention_bwd": n_attn * TRAIN_STEPS,
+            "ssm_scan": fwd * n_rwkv * TRAIN_STEPS,
+            "ssm_scan_bwd": n_rwkv * TRAIN_STEPS}
+    losses = res.losses
+    log(f"[train] {arch} bf16 launch.train {b} x {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps in {wall:.1f} s (init included): losses "
+        f"{losses}; launches {launches} (want {want}); peak device memory "
+        f"{peak:.2f} GB")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x)
+                                             for x in losses),
+          f"{arch} train losses {losses}")
+    check(launches == want, f"{arch} train launches {launches}, want {want}")
+    # every parameter moved away from its initial value
+    init = TT.init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    moved = {n: float((p.detach() != q).float().mean())
+             for (n, p), (_, q) in zip(state.params.named_parameters(),
+                                       init.named_parameters())}
+    del init
+    least = min(moved.items(), key=lambda x: x[1])
+    log(f"[train] {arch}: {len(moved)} parameter leaves, each changed in "
+        f">= {least[1]:.4f} of its elements ({least[0]} least)")
+    check(least[1] > 0.5, f"{arch}: parameter {least[0]} barely changed")
+
+    step = TS.make_train_step(cfg, run["opt_cfg"])
+    batch = run["stream"].batch(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+
+    def one_step():
+        nonlocal state, m
+        state, m = step(state, run["stream"].batch(TRAIN_STEPS + 1))
+    prof_wall, spans = profiled_again(one_step)
+    kernel_us = sum(e - s_ for s_, e, _ in spans)
+    parts = {"flash_attention fwd": ("flash_attention_tc_kernel",
+                                     "flash_attention_kernel"),
+             "flash_attention bwd": ("delta_kernel", "dkdv_kernel",
+                                     "group_sum_kernel", "dq_kernel"),
+             "ssm_scan fwd": ("ssm_scan_kernel",),
+             "ssm_scan bwd": ("ssm_scan_bwd_kernel", "ssm_bwd_rows_kernel",
+                              "ssm_bwd_du_kernel")}
+    shares = {}
+    for part, names in parts.items():
+        us = sum(e - s_ for s_, e, nm in spans
+                 if any(x in nm for x in names))
+        shares[part] = us / kernel_us if kernel_us else 0.0
+    tok_s = b * TRAIN_SEQ / (step_ms / 1e3)
+    out = {"arch": arch, "batch": b, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "losses": losses, "launches": launches, "wall_s": wall,
+           "step_ms": step_ms, "tokens_per_s": tok_s, "peak_gb": peak,
+           "profiled_step_ms": prof_wall / 1e3,
+           "idle_share": (1 - busy_us(spans) / prof_wall) if spans
+                         else None,
+           "kernel_shares": shares, "min_changed_share": least[1],
+           "params": TT.param_count(state.params)}
+    log(f"[train] {arch} bf16 step {b} x {TRAIN_SEQ}: {step_ms:.1f} ms "
+        f"({tok_s:.0f} tok/s); profiled {prof_wall / 1e3:.1f} ms, card idle "
+        f"{out['idle_share']}; shares of kernel time "
+        f"{ {k: round(v, 4) for k, v in shares.items()} }")
+    del run, res, state, batch, m
+    return out
+
+
+def train_resume(dev, seed) -> dict:
+    """A failure injected at step RESUME_FAIL_AT of a RESUME_STEPS-step run
+    of rwkv6-1.6b at full width cut to RESUME_LAYERS layers, with
+    checkpoints under build/: the restart restores the newest checkpoint
+    onto the card, and every step's loss equals a straight run's."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.lm import DataConfig, TokenStream
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import FailureInjector, LoopConfig, train
+
+    base = memory_reset()
+    cfg = dataclasses.replace(configs.get_config("rwkv6-1.6b"),
+                              num_layers=RESUME_LAYERS)
+    ds = TokenStream(DataConfig(vocab=cfg.vocab,
+                                batch=TRAIN_BATCH["rwkv6-1.6b"],
+                                seq_len=TRAIN_SEQ, seed=seed), device=dev)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=100)
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    straight = train(cfg, ds.batch, LoopConfig(total_steps=RESUME_STEPS,
+                                               log_every=1), opt, seed=seed,
+                     verbose=False, device=dev)
+    straight.state = None
+    t0 = time.perf_counter()
+    failed = train(cfg, ds.batch,
+                   LoopConfig(total_steps=RESUME_STEPS,
+                              ckpt_every=RESUME_CKPT_EVERY, log_every=1),
+                   opt, ckpt_dir=str(ckdir), seed=seed, verbose=True,
+                   device=dev,
+                   failure_injector=FailureInjector(
+                       fail_at=(RESUME_FAIL_AT,)))
+    wall = time.perf_counter() - t0
+    want = {int(m["step"]): m["loss"] for m in straight.metrics_history}
+    got = {int(m["step"]): m["loss"] for m in failed.metrics_history}
+    # the first step logged after the failure: the checkpoint's step, not 0
+    steps = [int(m["step"]) for m in failed.metrics_history]
+    restored_at = steps[RESUME_FAIL_AT] if len(steps) > RESUME_FAIL_AT \
+        else None
+    on_card = all(p.device.type == "cuda"
+                  for p in failed.state.params.parameters())
+    bitwise = got == want
+    rel = max(abs(got[s_] - want[s_]) / abs(want[s_]) for s_ in want)
+    ck_gb = sum(f.stat().st_size for f in ckdir.rglob("*.npy")) / 1e9
+    out = {"layers": RESUME_LAYERS, "steps": RESUME_STEPS,
+           "fail_at": RESUME_FAIL_AT, "restarts": failed.restarts,
+           "losses_straight": [want[s_] for s_ in sorted(want)],
+           "losses_resumed": [got.get(s_) for s_ in sorted(want)],
+           "restored_at": restored_at, "bitwise": bitwise,
+           "max_rel": rel, "wall_s": wall,
+           "ckpt_gb_on_disk": ck_gb, "peak_gb": peak_gb(base)}
+    log(f"[train] resume {cfg.name} at {RESUME_LAYERS} layers: failure at "
+        f"step {RESUME_FAIL_AT}, {failed.restarts} restart(s) from the "
+        f"step-{restored_at} checkpoint, final step "
+        f"{failed.final_step}; losses straight {out['losses_straight']}, "
+        f"resumed {out['losses_resumed']} (bitwise {bitwise}, max rel "
+        f"{rel:.3e}); state on the card {on_card}; {ck_gb:.2f} GB of "
+        f"checkpoints; {wall:.1f} s")
+    check(failed.restarts == 1 and failed.final_step == RESUME_STEPS
+          and restored_at == RESUME_CKPT_EVERY
+          and set(got) == set(want) and rel <= 1e-5 and on_card,
+          "train resume after an injected failure is not exact")
+    del failed
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return out
+
+
+def train_phase(dev, seed) -> dict:
+    """Phase 11 (see its header); returns the two backward kernels' rows
+    of the kernels line and the phase's numbers."""
+    flash_errs = check_flash_bwd(dev)
+    scan_errs = check_ssm_bwd(dev)
+    out = {"on_vs_off": [train_on_vs_off(dev, seed, "gemma-2b", 0, 2),
+                         train_on_vs_off(dev, seed, "rwkv6-1.6b", 4, 4)]}
+    memory_reset()
+    out["gemma-2b"] = train_launch(dev, seed, "gemma-2b")
+    out["rwkv6-1.6b"] = train_launch(dev, seed, "rwkv6-1.6b")
+    out["resume"] = train_resume(dev, seed)
+    memory_reset()
+    flash_launches = out["gemma-2b"]["launches"]["flash_attention_bwd"]
+    scan_launches = out["rwkv6-1.6b"]["launches"]["ssm_scan_bwd"]
+    entries = [flash_bwd_entry(dev, flash_errs, flash_launches),
+               ssm_bwd_entry(dev, scan_errs, scan_launches)]
+    return {"entries": entries, "train": out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4335,6 +4869,20 @@ def main(argv=None) -> int:
             **line["embeds_lm"]["launches"]}}
     log(f"[moe] the MoE, hybrid and embeds phases took "
         f"{time.perf_counter() - t_moe:.1f} s")
+
+    t_train = time.perf_counter()
+    train = train_phase(dev, args.seed)
+    line["kernels"].extend(train["entries"])
+    line["kernels"][-2]["ptxas"] = ptxas["flash_attention_bwd"]
+    line["kernels"][-1]["ptxas"] = ptxas["ssm_scan_bwd"]
+    line["train_lm"] = train["train"]
+    # the forward kernels' launches on the train path (2 a layer a step)
+    flash["path_launches"]["train_lm"] = \
+        train["train"]["gemma-2b"]["launches"]["flash_attention"]
+    next(k for k in line["kernels"] if k["name"] == "ssm_scan")[
+        "path_launches"] = {"train_lm": train["train"]["rwkv6-1.6b"][
+            "launches"]["ssm_scan"]}
+    log(f"[train] phase took {time.perf_counter() - t_train:.1f} s")
     log(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))

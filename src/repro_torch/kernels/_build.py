@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("chain_scan", "dtw_wavefront", "radix_rank", "ssm_scan",
-           "flash_attention")
+           "flash_attention", "ssm_scan_bwd", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -18,7 +18,10 @@
 //
 // Two kernels, routed by the inputs' type (flash_attention_launch): it is
 // a route by type, not a fallback, and a bf16 call the tensor-core kernel
-// cannot take is refused, never sent to the other one.
+// cannot take is refused, never sent to the other one. In training both
+// also write the fp32 row log-sum-exp ln sum_j exp(s_ij) (B, H, Sq), -inf
+// for a row that sees nothing, for the backward (flash_attention_bwd.cu);
+// serving passes a null pointer and skips that store.
 //
 // * bf16: flash_attention_tc_kernel, on the tensor cores. What bounds it:
 //   operations. At gemma-2b's prefill shape (B=4, H=8, KV=1, S=2048,
@@ -125,9 +128,10 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int KV, int Sq, int Skv, int window, float scale,
-                       Strides qs, Strides ks, Strides vs, Strides os) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int H, int KV, int Sq,
+                       int Skv, int window, float scale, Strides qs,
+                       Strides ks, Strides vs, Strides os) {
   using Lay = Layout<HD>;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem + Lay::kQ;
@@ -263,12 +267,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
+  if (lse != nullptr && lane == 0) {   // training: the backward's input
+    float* lrow = lse + ((long long)b * H + h) * Sq;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int qp = q0 + row0 + r;
+      if (qp < Sq) lrow[qp] = l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
+    }
+  }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int Sq, int Skv, int window, float scale, Strides qs,
-           Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int Sq, int Skv, int window, float scale,
+           Strides qs, Strides ks, Strides vs, Strides os,
+           cudaStream_t stream) {
   auto kern = flash_attention_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -276,22 +289,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, Layout<HD>::kBytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, KV, Sq, Skv, window,
-      scale, qs, ks, vs, os);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, KV, Sq, Skv,
+      window, scale, qs, ks, vs, os);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                int B, int H, int KV, int Sq, int Skv, int window, float scale,
+                float* lse, int B, int H, int KV, int Sq, int Skv, int window,
+                float scale,
                 Strides qs, Strides ks, Strides vs, Strides os,
                 cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -547,8 +561,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          __nv_bfloat16* __restrict__ o, int H, int KV,
-                          int Sq, int Skv, int window, float scale_log2,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int H, int KV, int Sq,
+                          int Skv, int window, float scale_log2,
                           Strides os) {
   using C = TcCfg<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -730,13 +745,26 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // out = acc / l, in bf16
-  float inv[2];
+  float inv[2], lsum[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(kAllLanes, l, 1);
     l += __shfl_xor_sync(kAllLanes, l, 2);
+    lsum[r] = l;
     inv[r] = 1.f / fmaxf(l, 1e-20f);
+  }
+  if (lse != nullptr && (lane & 3) == 0) {   // training: ln sum exp(s)
+    float* lrow = lse + ((long long)b * H + h) * Sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = wq0 + row_a + 8 * r;
+      const float m = m_run[r] == -INFINITY ? 0.f : m_run[r];
+      if (qp < Sq) {
+        lrow[qp] = lsum[r] > 0.f ? (m + log2f(lsum[r])) * 0.69314718055994531f
+                                 : -INFINITY;
+      }
+    }
   }
   o += b * os.b + h * os.h;
 #pragma unroll
@@ -806,8 +834,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int KV, int Sq, int Skv, int window, float scale,
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int H, int KV, int Sq, int Skv, int window,
+              float scale,
               Strides qs, Strides ks, Strides vs, Strides os,
               cudaStream_t stream) {
   using C = TcCfg<HD>;
@@ -824,21 +853,22 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kTcBM - 1) / kTcBM, H, B);
   const float log2e = 1.4426950408889634f;
   kern<<<grid, kTcThreads, C::kSmem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, H, KV, Sq, Skv, window, scale * log2e,
-      os);
+      tq, tk, tv, (__nv_bfloat16*)o, lse, H, KV, Sq, Skv, window,
+      scale * log2e, os);
   return (int)cudaGetLastError();
 }
 
 int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o,
-                int B, int H, int KV, int Sq, int Skv, int window, float scale,
+                float* lse, int B, int H, int KV, int Sq, int Skv, int window,
+                float scale,
                 Strides qs, Strides ks, Strides vs, Strides os,
                 cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
-    case 32: return launch_tc<32>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
-    case 64: return launch_tc<64>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
-    case 128: return launch_tc<128>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
-    case 256: return launch_tc<256>(q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 16: return launch_tc<16>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 32: return launch_tc<32>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 64: return launch_tc<64>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 128: return launch_tc<128>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
+    case 256: return launch_tc<256>(q, k, v, o, lse, B, H, KV, Sq, Skv, window, scale, qs, ks, vs, os, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -848,9 +878,13 @@ int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = fp32 (the SIMT kernel), 1 = bf16 (the tensor-core kernel).
 // Strides are in elements, for the (B, H, S, hd) view of each tensor; the
 // hd axis is contiguous, and for bf16 every pointer is 16-byte aligned and
-// every stride a multiple of 8 (TMA's rule).
+// every stride a multiple of 8 (TMA's rule). lse, when not null, receives
+// the fp32 row log-sum-exp ln sum_j exp(s_ij) (B, H, Sq), contiguous
+// (-inf for a row that sees nothing): the backward's input in training.
+// Serving passes null.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int dtype, int B,
     int H, int KV, int Sq, int Skv, int hd, int window, float scale,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
@@ -866,12 +900,12 @@ extern "C" int flash_attention_launch(
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    return dispatch_hd<float>(hd, q, k, v, o, B, H, KV, Sq, Skv, window, scale,
-                              qs, ks, vs, os, s);
+    return dispatch_hd<float>(hd, q, k, v, o, (float*)lse, B, H, KV, Sq, Skv,
+                              window, scale, qs, ks, vs, os, s);
   }
   if (dtype == 1) {
-    return dispatch_tc(hd, q, k, v, o, B, H, KV, Sq, Skv, window, scale, qs,
-                       ks, vs, os, s);
+    return dispatch_tc(hd, q, k, v, o, (float*)lse, B, H, KV, Sq, Skv, window,
+                       scale, qs, ks, vs, os, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,9 +14,19 @@ inputs to the kernel on the fp32 cores: a route by type, not a fallback.
 Unlike the TPU kernel, neither version needs Sq or Skv to be a multiple of a
 block: the kernel masks its ragged edges itself.
 
-``flash_attention`` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors; it never falls back from one to the other.
-``launches`` counts kernel launches.
+Training: when q, k or v requires a gradient (and grad mode is on),
+``flash_attention`` goes through ``FlashAttention``, a
+``torch.autograd.Function``. Its forward also writes the fp32 row
+log-sum-exp lse_i = ln sum_j exp(s_ij) (B, H, Sq); its backward is the
+hand-written ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's backward:
+a delta pass, dK/dV per kv block, dQ per q block, no float atomics), and
+``flash_attention_bwd_plain`` beside it is its plain version. Serving (no
+gradient) takes the path without lse, unchanged.
+
+``flash_attention`` runs the plain versions for CPU tensors and launches the
+kernels for CUDA tensors; it never falls back from one to the other.
+``launches`` counts forward kernel launches and ``bwd_launches`` backward
+ones (one per backward call, which enqueues four kernels).
 """
 
 from __future__ import annotations
@@ -32,36 +42,85 @@ Tensor = torch.Tensor
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: number of CUDA kernel launches so far (CPU calls do not count)
+#: number of CUDA forward kernel launches so far (CPU calls do not count)
 launches = 0
+#: number of CUDA backward launches so far (one per backward call)
+bwd_launches = 0
 
 
-def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
-                          window: int = 0) -> Tensor:
+def _visible(sq: int, skv: int, window: int, device) -> Tensor:
+    """(Sq, Skv) mask of the kv positions each q position sees."""
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(skv, device=device)[None, :]
+    ok = kp <= qp
+    if window > 0:
+        ok &= (qp - kp) < window
+    return ok
+
+
+def flash_attention_fwd_plain(q: Tensor, k: Tensor, v: Tensor,
+                              window: int = 0):
     """The plain version: the whole (Sq, Skv) score matrix in fp32, as
     ``_naive_attn`` of the reference's kernel tests, with the kernel's rule
-    for rows that see nothing (p = 0, output 0)."""
+    for rows that see nothing (p = 0, output 0). Returns (out in q's dtype,
+    the fp32 row log-sum-exp (B, H, Sq), -inf where a row sees nothing)."""
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     grp = h // kvh
     kf = k.to(torch.float32).repeat_interleave(grp, dim=1)
     vf = v.to(torch.float32).repeat_interleave(grp, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32) * hd ** -0.5, kf)
-    qp = torch.arange(sq, device=q.device)[:, None]
-    kp = torch.arange(skv, device=q.device)[None, :]
-    ok = kp <= qp
-    if window > 0:
-        ok &= (qp - kp) < window
+    ok = _visible(sq, skv, window, q.device)
     s = torch.where(ok, s, -1e30)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vf)
-    out = out / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-20)
-    return out.to(q.dtype)
+    l = p.sum(dim=-1, keepdim=True)
+    out = out / torch.clamp_min(l, 1e-20)
+    lse = (m + torch.log(l))[..., 0]
+    return out.to(q.dtype), lse
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
+                          window: int = 0) -> Tensor:
+    """``flash_attention_fwd_plain``'s output alone."""
+    return flash_attention_fwd_plain(q, k, v, window)[0]
+
+
+def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                              lse: Tensor, do: Tensor, window: int = 0):
+    """The plain backward, the kernel's formulas on whole matrices in fp32:
+    p = exp(scale q.k - lse) where visible, D = rowsum(dO o), dS = p (dO.v -
+    D); dQ = scale dS k, dK = scale dS^T q and dV = p^T dO, the last two
+    summed over the query heads of each kv head. Returns (dq, dk, dv) in
+    q's, k's and v's dtypes."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    grp = h // kvh
+    scale = hd ** -0.5
+    f32 = torch.float32
+    qf, of, dof = q.to(f32), o.to(f32), do.to(f32)
+    kf = k.to(f32).repeat_interleave(grp, dim=1)
+    vf = v.to(f32).repeat_interleave(grp, dim=1)
+    ok = _visible(sq, skv, window, q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.where(ok, torch.exp(s - lse.to(f32)[..., None]), 0.0)
+    dd = (dof * of).sum(dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - dd[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, kvh, grp, skv, hd).sum(dim=2)
+    dv = dv.reshape(b, kvh, grp, skv, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                 + [ctypes.c_float] + [ctypes.c_longlong] * 15
+                 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, window: int):
@@ -118,22 +177,21 @@ def _tma_strides(x: Tensor):
     return out[::-1]
 
 
-def flash_attention(q: Tensor, k: Tensor, v: Tensor,
-                    window: int = 0) -> Tensor:
-    """q (B, H, Sq, hd); k, v (B, KV, Skv, hd); any strides with the hd axis
-    contiguous. Returns (B, H, Sq, hd) in q's dtype, laid out as q is (so a
-    (B, S, H, hd) tensor seen as (B, H, S, hd) gives the same view back)."""
+def _forward(q: Tensor, k: Tensor, v: Tensor, window: int, with_lse: bool):
+    """The forward kernel on CUDA tensors: (out, lse or None)."""
     global launches
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window)
     _check(q, k, v, window)
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b == 0 or h == 0 or sq == 0:
-        return out
+        return out, lse
     if skv == 0:
-        return out.zero_()
+        if lse is not None:
+            lse.fill_(-float("inf"))
+        return out.zero_(), lse
     fn = _build.function("flash_attention", "flash_attention_launch",
                          _ARGTYPES)
     dev = q.device
@@ -141,9 +199,84 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
     strides = [s for x in (q, k, v, out) for s in _tma_strides(x)]
     launches += 1
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], b, h, kvh, sq, skv, hd, window, hd ** -0.5,
-             *strides, dev.index or 0, stream)
+             None if lse is None else lse.data_ptr(), _DTYPES[q.dtype], b, h,
+             kvh, sq, skv, hd, window, hd ** -0.5, *strides, dev.index or 0,
+             stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return out
+    return out, lse
+
+
+def _backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+              do: Tensor, window: int):
+    """The backward kernels on CUDA tensors: (dq, dk, dv), contiguous."""
+    global bwd_launches
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    dq = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, kvh, skv, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, kvh, skv, hd), dtype=v.dtype, device=q.device)
+    if b == 0 or h == 0 or sq == 0 or skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dd = torch.empty((b, h, sq), **f32)
+    dk_part = torch.empty((b, h, skv, hd), **f32)
+    dv_part = torch.empty((b, h, skv, hd), **f32)
+    fn = _build.function("flash_attention_bwd", "flash_attention_bwd_launch",
+                         _BWD_ARGTYPES)
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    strides = [s for x in (q, k, v, o, do) for s in _tma_strides(x)]
+    bwd_launches += 1
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), dd.data_ptr(), dk_part.data_ptr(),
+             dv_part.data_ptr(), _DTYPES[q.dtype], b, h, kvh, sq, skv, hd,
+             window, hd ** -0.5, *strides, dev.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: plain forward and backward for
+    CPU tensors, the kernels for CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_fwd_plain(q, k, v, window)
+        else:
+            out, lse = _forward(q, k, v, window, with_lse=True)
+        ctx.window = window
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                              ctx.window)
+        else:
+            grads = _backward(q, k, v, out, lse, do, ctx.window)
+        return (*grads, None)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor,
+                    window: int = 0) -> Tensor:
+    """q (B, H, Sq, hd); k, v (B, KV, Skv, hd); any strides with the hd axis
+    contiguous. Returns (B, H, Sq, hd) in q's dtype, laid out as q is (so a
+    (B, S, H, hd) tensor seen as (B, H, S, hd) gives the same view back).
+    Differentiable (``FlashAttention``) when an input requires a
+    gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window)
+    return _forward(q, k, v, window, with_lse=False)[0]

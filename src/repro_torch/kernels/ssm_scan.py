@@ -12,9 +12,17 @@ model's prefill and chunked prefill need. With ``s0 = None`` and the final
 state dropped it is ``ssm_scan_pallas``. Neither version clamps ``w``: the
 caller does, as ``wkv_chunked`` does.
 
-``ssm_scan`` runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors; it never falls back from one to the other. ``launches``
-counts kernel launches.
+Training: when an input requires a gradient (and grad mode is on),
+``ssm_scan`` goes through ``SSMScan``, a ``torch.autograd.Function`` whose
+backward is the hand-written ``csrc/ssm_scan_bwd.cu`` (dr, dw, dk, dv, du
+and ds0 from dy and the final state's gradient; it recomputes the states
+from checkpoints every 16 steps instead of undoing steps, which would
+divide by w), with ``ssm_scan_bwd_plain`` beside it as its plain version.
+
+``ssm_scan`` runs the plain versions for CPU tensors and launches the
+kernels for CUDA tensors; it never falls back from one to the other.
+``launches`` counts forward kernel launches and ``bwd_launches`` backward
+ones (one per backward call, which enqueues two or three kernels).
 """
 
 from __future__ import annotations
@@ -32,8 +40,13 @@ Tensor = torch.Tensor
 DK_MAX = 64
 DV_MAX = 128
 
-#: number of CUDA kernel launches so far (CPU calls do not count)
+#: number of CUDA forward kernel launches so far (CPU calls do not count)
 launches = 0
+#: number of CUDA backward launches so far (one per backward call)
+bwd_launches = 0
+# the backward kernel's tiling: value columns per CTA, steps per checkpoint,
+# and floats per CTA checkpoint (64 lanes x a 4 x 4 state tile)
+_BWD_COLS, _BWD_CHUNK, _BWD_CKPT = 16, 16, 1024
 
 
 def ssm_scan_plain(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
@@ -45,20 +58,56 @@ def ssm_scan_plain(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
     return wkv_steps(r, w, k, v, u, s0)
 
 
+def ssm_scan_bwd_plain(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
+                       u: Optional[Tensor], s0: Optional[Tensor],
+                       dy: Optional[Tensor], ds_final: Optional[Tensor]):
+    """The plain backward, the kernel's recurrence one step at a time in
+    fp32: the states S_{t-1} kept from a forward pass, then, walking t
+    down with G = dL/dS_t (from ``ds_final``, or zero),
+
+        dr_t = (S_{t-1} + diag(u) k_t^T v_t) dy_t^T
+        dk_t = (G + diag(r_t u) 1 dy_t) v_t^T,  dv_t = k_t (G + ...)
+        dw_t = rowsum(G (.) S_{t-1}),  du += r_t k_t (dy_t . v_t)
+        G <- diag(w_t) G + r_t^T dy_t
+
+    Returns (dr, dw, dk, dv, du or None, ds0 or None), fp32."""
+    b, t, dk = r.shape
+    dv = v.shape[-1]
+    f32 = torch.float32
+    r, w, k, v = (z.to(f32) for z in (r, w, k, v))
+    uu = r.new_zeros((dk,)) if u is None else u.to(f32)
+    dy = r.new_zeros((b, t, dv)) if dy is None else dy.to(f32)
+    s = r.new_zeros((b, dk, dv)) if s0 is None else s0.to(f32)
+    states = []
+    for i in range(t):
+        states.append(s)
+        s = w[:, i, :, None] * s + k[:, i, :, None] * v[:, i, None, :]
+    g = (r.new_zeros((b, dk, dv)) if ds_final is None
+         else ds_final.to(f32).clone())
+    dr, dw, dkk = (torch.empty_like(r) for _ in range(3))
+    dvv = torch.empty_like(v)
+    du = r.new_zeros((dk,))
+    for i in reversed(range(t)):
+        sp = states[i]
+        ri, wi, ki, vi, di = r[:, i], w[:, i], k[:, i], v[:, i], dy[:, i]
+        gb = g + (ri * uu)[:, :, None] * di[:, None, :]
+        dr[:, i] = ((sp + (uu * ki)[:, :, None] * vi[:, None, :])
+                    * di[:, None, :]).sum(-1)
+        dkk[:, i] = (gb * vi[:, None, :]).sum(-1)
+        dvv[:, i] = (gb * ki[:, :, None]).sum(1)
+        dw[:, i] = (g * sp).sum(-1)
+        du += (ri * ki * (di * vi).sum(-1, keepdim=True)).sum(0)
+        g = wi[:, :, None] * g + ri[:, :, None] * di[:, None, :]
+    return (dr, dw, dkk, dvv, None if u is None else du,
+            None if s0 is None else g)
+
+
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def ssm_scan(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
-             u: Optional[Tensor] = None, s0: Optional[Tensor] = None
-             ) -> Tuple[Tensor, Tensor]:
-    """r, w, k (B, T, dk), v (B, T, dv), u (dk,) or None (no bonus), s0
-    (B, dk, dv) or None (zero state). B folds batch and heads.
-
-    Returns (y (B, T, dv) fp32, s_final (B, dk, dv) fp32).
-    """
-    global launches
-    if r.device.type == "cpu":
-        return ssm_scan_plain(r, w, k, v, u, s0)
+def _prepare(r, w, k, v, u, s0):
+    """Checks for the kernels; the inputs as contiguous fp32."""
     dev = r.device
     others = [("w", w), ("k", k), ("v", v), ("u", u), ("s0", s0)]
     for name, x in others:
@@ -89,7 +138,15 @@ def ssm_scan(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
            for x in (r, w, k, v, u, s0)]
     if not all(x is None or x.is_contiguous() for x in f32):
         raise ValueError("ssm_scan: inputs must be contiguous")
-    r, w, k, v, u, s0 = f32
+    return f32
+
+
+def _forward(r, w, k, v, u, s0) -> Tuple[Tensor, Tensor]:
+    """The forward kernel on prepared CUDA tensors."""
+    global launches
+    dev = r.device
+    b, t, dk = r.shape
+    dv = v.shape[-1]
     y = torch.empty((b, t, dv), dtype=torch.float32, device=dev)
     s_final = torch.empty((b, dk, dv), dtype=torch.float32, device=dev)
     if b == 0:
@@ -103,3 +160,97 @@ def ssm_scan(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
     return y, s_final
+
+
+def _backward(r, w, k, v, u, s0, dy, ds_final):
+    """The backward kernels on prepared CUDA tensors: (dr, dw, dk, dv, du or
+    None, ds0 or None), fp32."""
+    global bwd_launches
+    dev = r.device
+    b, t, dk = r.shape
+    dv = v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=dev)
+    dy = (torch.zeros((b, t, dv), **f32) if dy is None
+          else dy.to(torch.float32).contiguous())
+    if ds_final is not None:
+        ds_final = ds_final.to(torch.float32).contiguous()
+    dr, dw, dkk = (torch.empty((b, t, dk), **f32) for _ in range(3))
+    dvv = torch.empty((b, t, dv), **f32)
+    du = torch.empty((dk,), **f32) if u is not None else None
+    ds0 = torch.empty((b, dk, dv), **f32) if s0 is not None else None
+    if b == 0 or t == 0:
+        for x in (dr, dw, dkk, dvv, du):
+            if x is not None:
+                x.zero_()
+        if ds0 is not None:
+            ds0.copy_(torch.zeros_like(ds0) if ds_final is None
+                      else ds_final)
+        return dr, dw, dkk, dvv, du, ds0
+    ncb = -(-dv // _BWD_COLS)
+    ckpt = torch.empty((b * ncb * -(-t // _BWD_CHUNK) * _BWD_CKPT,), **f32)
+    part = torch.empty((3 * ncb * b * t * dk,), **f32)
+    du_part = torch.empty((b * ncb * dk,), **f32) if u is not None else None
+    fn = _build.function("ssm_scan_bwd", "ssm_scan_bwd_launch", _BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    bwd_launches += 1
+    err = fn(ptr(r), ptr(w), ptr(k), ptr(v), ptr(u), ptr(s0), ptr(dy),
+             ptr(ds_final), ptr(dr), ptr(dw), ptr(dkk), ptr(dvv), ptr(du),
+             ptr(ds0), ptr(ckpt), ptr(part), ptr(du_part), b, t, dk, dv,
+             dev.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan backward launch failed: CUDA error "
+                           f"{err}")
+    return dr, dw, dkk, dvv, du, ds0
+
+
+class SSMScan(torch.autograd.Function):
+    """``ssm_scan`` with a gradient: plain forward and backward for CPU
+    tensors, the kernels for CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, r, w, k, v, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.dtypes = [None if x is None else x.dtype
+                      for x in (r, w, k, v, u, s0)]
+        if r.device.type == "cpu":
+            ins = (r, w, k, v, u, s0)
+            y, s_final = ssm_scan_plain(*ins)
+        else:
+            ins = _prepare(r, w, k, v, u, s0)
+            y, s_final = _forward(*ins)
+        ctx.has = [x is not None for x in ins]
+        ctx.save_for_backward(*(x for x in ins if x is not None))
+        return y, s_final
+
+    @staticmethod
+    def backward(ctx, dy, ds_final):
+        saved = iter(ctx.saved_tensors)
+        ins = [next(saved) if h else None for h in ctx.has]
+        if ins[0].device.type == "cpu":
+            grads = ssm_scan_bwd_plain(*ins, dy, ds_final)
+        else:
+            grads = _backward(*ins, dy, ds_final)
+        # grads come as (dr, dw, dk, dv, du, ds0); inputs are (r, w, k, v,
+        # u, s0)
+        return tuple(None if g is None or not need else g.to(dt)
+                     for g, need, dt in zip(grads, ctx.needs_input_grad,
+                                            ctx.dtypes))
+
+
+def ssm_scan(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
+             u: Optional[Tensor] = None, s0: Optional[Tensor] = None
+             ) -> Tuple[Tensor, Tensor]:
+    """r, w, k (B, T, dk), v (B, T, dv), u (dk,) or None (no bonus), s0
+    (B, dk, dv) or None (zero state). B folds batch and heads.
+
+    Returns (y (B, T, dv) fp32, s_final (B, dk, dv) fp32). Differentiable
+    (``SSMScan``) when an input requires a gradient.
+    """
+    ins = (r, w, k, v, u, s0)
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in ins):
+        return SSMScan.apply(*ins)
+    if r.device.type == "cpu":
+        return ssm_scan_plain(*ins)
+    return _forward(*_prepare(*ins))

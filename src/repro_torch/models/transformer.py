@@ -19,19 +19,31 @@ Modes:
                (chunked prefill) that carries the cached state.
 
 On the card, train and prefill run the kernels: ``flash_attention`` for
-every attention layer and ``ssm_scan`` for every RWKV layer. A decode step
+every attention layer and ``ssm_scan`` for every RWKV layer. In train mode
+with gradients on (the trainer's ``Model`` has ``requires_grad``) both go
+through their ``autograd.Function``: the forward kernel (which then also
+keeps flash attention's row log-sum-exp) and a hand-written backward
+kernel. With ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
+body), so its forward kernels run twice a step: once in the forward, once
+in the recompute; ``remat_policy="dots"`` keeps the matrix products'
+outputs instead of recomputing them (``checkpoint_dots``). A decode step
 and a chunk attend over the cache with the plain ``blockwise_attention``.
 The Mamba scan and the MoE dispatch have no kernel in the reference and
 run as plain torch everywhere.
+
+``lm_loss`` is the reference's masked cross-entropy plus z-loss.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -45,7 +57,8 @@ Tensor = torch.Tensor
 
 class ParamTree(nn.Module):
     """A nested mapping of parameter names to tensors, as a module: leaves
-    are parameters (no gradient), inner dicts are child ParamTrees, and
+    are parameters (no gradient until a trainer turns it on with
+    ``requires_grad_``), inner dicts are child ParamTrees, and
     ``tree["name"]`` reads either, as the reference reads its dicts."""
 
     def __init__(self, tree: Dict[str, Any]):
@@ -270,6 +283,30 @@ def _stack(trees: List[Any]):
 
 
 # ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+# the matrix products whose outputs remat_policy="dots" keeps (the
+# reference's checkpoint_dots keeps every dot_general's)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(cfg: ModelConfig):
+    """``checkpoint``'s context_fn: full recompute, or with
+    ``remat_policy="dots"`` the matrix products' outputs saved."""
+    if cfg.remat_policy == "dots":
+        return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                 _save_dots)
+    return ckpt.noop_context_fn
+
+
+# ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
 
@@ -284,7 +321,9 @@ def apply_model(params: Model, cfg: ModelConfig, *,
 
     ``positions`` (B, S) default to 0..S-1 in train and prefill and to
     ``pos_scalar`` + 0..S-1 in decode, where ``pos_scalar`` is the shared
-    scalar position or the (B,) per-row positions. ``cache_slots`` sizes
+    scalar position or the (B,) per-row positions. In train mode with
+    gradients on and ``cfg.remat``, each layer runs under
+    ``torch.utils.checkpoint``. ``cache_slots`` sizes
     the caches a prefill builds (0: none). ``use_kernels=False`` runs the
     plain versions on the tensors' device instead of the kernels: the WKV
     scan's, and ``blockwise_attention`` (or ``banded_attention``) instead
@@ -316,10 +355,23 @@ def apply_model(params: Model, cfg: ModelConfig, *,
     pattern = cfg.pattern
     period = len(pattern)
     want_caches = mode != "train"
+    remat = (cfg.remat and mode == "train" and torch.is_grad_enabled()
+             and any(p.requires_grad for p in params.parameters()))
     new: Dict[str, List[Any]] = {f"p{i}": [] for i in range(period)}
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, p in enumerate(params.layers):
         i, j = li % period, li // period
+        if remat:
+            def layer(xc, p=p, spec=pattern[i]):
+                xo, _, aux_l = _apply_layer(p, cfg, spec, xc, positions,
+                                            None, mode, pos_scalar,
+                                            cache_slots, use_kernels,
+                                            own_positions)
+                return xo, aux_l
+            x, aux = ckpt.checkpoint(layer, x, use_reentrant=False,
+                                     context_fn=_remat_context(cfg))
+            aux_loss = aux_loss + aux
+            continue
         ci = _take(caches[f"p{i}"], j) if caches is not None else None
         x, nc, aux = _apply_layer(p, cfg, pattern[i], x, positions, ci,
                                   mode, pos_scalar, cache_slots, use_kernels,
@@ -397,3 +449,24 @@ def init_caches(cfg: ModelConfig, batch: int, slots: int,
         else:
             raise ValueError(spec.mixer)
     return caches
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def lm_loss(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None,
+            z_weight: float = 1e-4) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Masked CE (fp32) + z-loss. labels: (B, S) integers; mask 1.0 = keep.
+    Returns (loss, {"ce", "z_loss"}), as the reference's ``lm_loss``."""
+    logits = logits.to(torch.float32)
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=logits.device)
+    mask = mask.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = ((logz - ll) * mask).sum() / denom
+    zl = z_weight * (torch.square(logz) * mask).sum() / denom
+    return ce + zl, {"ce": ce, "z_loss": zl}

@@ -855,3 +855,131 @@ def test_moe_dispatch_on_the_card_equals_the_cpu(cuda):
                                atol=1e-7)
     again, _ = TM.moe(on, cfg, x.to(cuda))
     assert torch.equal(again, got)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (training): against their plain backwards, and bit
+# for bit across two launches (no floating-point atomics)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,sq,skv,hd,win", [
+    (2, 8, 1, 2048, 2048, 256, 0), (2, 4, 4, 128, 128, 64, 0),
+    (1, 8, 2, 256, 256, 32, 0), (1, 4, 2, 256, 256, 64, 96),
+    (2, 4, 2, 300, 300, 16, 0), (2, 8, 2, 1000, 1000, 128, 0),
+    (1, 4, 2, 200, 333, 64, 0), (1, 4, 2, 333, 200, 64, 50)])
+def test_flash_attention_bwd_kernel_close(cuda, dtype, b, h, kvh, sq, skv,
+                                          hd, win):
+    g = torch.Generator(device=cuda).manual_seed(sq + skv + hd + win)
+    q = torch.randn((b, h, sq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, kvh, skv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, kvh, skv, hd), generator=g, device=cuda).to(dtype)
+    do = torch.randn((b, h, sq, hd), generator=g, device=cuda).to(dtype)
+    before = (KF.launches, KF.bwd_launches)
+    out, lse = KF._forward(q, k, v, win, with_lse=True)
+    want_out, want_lse = KF.flash_attention_fwd_plain(q, k, v, win)
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    torch.testing.assert_close(lse[fin], want_lse[fin], rtol=1e-5, atol=1e-4)
+    got = KF._backward(q, k, v, out, lse, do, win)
+    again = KF._backward(q, k, v, out, lse, do, win)
+    torch.cuda.synchronize()
+    assert (KF.launches, KF.bwd_launches) == (before[0] + 1, before[1] + 2)
+    want = KF.flash_attention_bwd_plain(q, k, v, out, lse, do, win)
+    for a, c, w in zip(got, again, want):
+        assert torch.equal(a, c)
+        assert a.dtype == dtype and a.shape == w.shape
+        torch.testing.assert_close(a.float(), w.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_attention_function_on_the_card(cuda):
+    """The autograd Function: one forward (with lse) and one backward
+    launch, the gradient of autograd through the plain version; strided
+    (B, S, H, hd) views, as the model passes them."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 300, 4, 64), generator=g, device=cuda)
+    k = torch.randn((2, 300, 2, 64), generator=g, device=cuda)
+    v = torch.randn((2, 300, 2, 64), generator=g, device=cuda)
+    do = torch.randn((2, 300, 4, 64), generator=g, device=cuda)
+    args = [x.requires_grad_() for x in (q, k, v)]
+    before = (KF.launches, KF.bwd_launches)
+    out = ops.flash_attention(*args, window=40)
+    got = torch.autograd.grad(out, args, do)
+    assert (KF.launches, KF.bwd_launches) == (before[0] + 1, before[1] + 1)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    ref = KF.flash_attention_plain(t(q), t(k), t(v), 40).transpose(1, 2)
+    want = torch.autograd.grad(ref, args, do)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("b,t,dk,dv", [(128, 2048, 64, 64), (1, 1000, 16, 16),
+                                       (3, 96, 8, 24), (2, 33, 5, 7),
+                                       (2, 50, 64, 128), (4, 17, 1, 1)])
+def test_ssm_scan_bwd_kernel_close(cuda, b, t, dk, dv, full):
+    r, w, k, v, u, s0 = (None if x is None else x.to(cuda) for x in
+                         _wkv_inputs(b, t, dk, dv, b + t + dv, full))
+    if not full:
+        u = None
+    g = torch.Generator(device=cuda).manual_seed(dk)
+    dy = torch.randn((b, t, dv), generator=g, device=cuda)
+    dsf = torch.randn((b, dk, dv), generator=g, device=cuda) if full else None
+    before = KS.bwd_launches
+    got = KS._backward(r, w, k, v, u, s0, dy, dsf)
+    again = KS._backward(r, w, k, v, u, s0, dy, dsf)
+    torch.cuda.synchronize()
+    assert KS.bwd_launches == before + 2
+    want = KS.ssm_scan_bwd_plain(r, w, k, v, u, s0, dy, dsf)
+    for a, c, x in zip(got, again, want):
+        if x is None:
+            assert a is None
+            continue
+        assert torch.equal(a, c)
+        scale = max(1.0, float(x.abs().max()))
+        assert float((a - x).abs().max()) <= 1e-4 * scale
+
+
+def test_ssm_scan_function_on_the_card(cuda):
+    r, w, k, v, u, s0 = (x.to(cuda).requires_grad_() for x in
+                         _wkv_inputs(2, 300, 16, 24, 9, True))
+    dy = torch.randn((2, 300, 24), device=cuda)
+    before = (KS.launches, KS.bwd_launches)
+    y, _ = KS.ssm_scan(r, w, k, v, u, s0)
+    got = torch.autograd.grad(y, (r, w, k, v, u, s0), dy)
+    assert (KS.launches, KS.bwd_launches) == (before[0] + 1, before[1] + 1)
+    y2, _ = KS.ssm_scan_plain(r, w, k, v, u, s0)
+    want = torch.autograd.grad(y2, (r, w, k, v, u, s0), dy)
+    for a, x in zip(got, want):
+        scale = max(1.0, float(x.abs().max()))
+        assert float((a - x).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
+def test_train_step_launches_and_matches_the_plain_step(cuda, arch):
+    """A reduced fp32 train step on the card under full remat: two forward
+    launches and one backward launch per layer, and the loss and gradients
+    of the step with the kernels off."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import step as TS
+    cfg = dataclasses.replace(configs.reduced_config(arch),
+                              dtype=torch.float32)
+    params = TT.init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    params.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (2, 65), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    mod = KF if arch == "gemma-2b" else KS
+    before = (mod.launches, mod.bwd_launches)
+    loss, _, _, grads = TS.loss_and_grads(params, cfg, batch)
+    assert (mod.launches - before[0], mod.bwd_launches - before[1]) == \
+        (2 * cfg.num_layers, cfg.num_layers)
+    loss2, _, _, grads2 = TS.loss_and_grads(params, cfg, batch,
+                                            use_kernels=False)
+    torch.testing.assert_close(loss, loss2, rtol=1e-5, atol=1e-6)
+    for name in grads:
+        scale = max(float(grads2[name].abs().max()), 1e-8)
+        assert float((grads[name] - grads2[name]).abs().max()) <= \
+            1e-4 * scale, name
