@@ -128,25 +128,34 @@ def time_cuda(fn, reps: int, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+# the tensor-core attention kernels of each library, by a substring of
+# their names: the forward's and the bf16 backward's
+TC_KERNELS = {"flash_attention": ("flash_attention_tc_kernel",),
+              "flash_attention_bwd": ("dkdv_tc_kernel", "dq_tc_kernel")}
+
+
 def sass_hgmma(build) -> dict:
-    """The tensor-core flash-attention kernels in the built library's SASS
-    (cuobjdump, beside nvcc): per instantiation, its HGMMA instructions and
-    the first of them."""
+    """The tensor-core attention kernels in the built libraries' SASS
+    (cuobjdump, beside nvcc): per library, per instantiation, its HGMMA
+    instructions and the first of them."""
     tool = Path(build._nvcc()).parent / "cuobjdump"
-    res = subprocess.run([str(tool), "-sass",
-                          str(build.lib_path("flash_attention"))],
-                         capture_output=True, text=True, timeout=300,
-                         check=True)
-    out, cur = {}, None
-    for line in res.stdout.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            cur = name if "flash_attention_tc_kernel" in name else None
-            if cur:
-                out[cur] = {"hgmma": 0, "first": None}
-        elif cur and "HGMMA" in line:
-            out[cur]["hgmma"] += 1
-            out[cur]["first"] = out[cur]["first"] or " ".join(line.split())
+    out = {}
+    for lib, names in TC_KERNELS.items():
+        res = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
+                             capture_output=True, text=True, timeout=300,
+                             check=True)
+        fns, cur = {}, None
+        for line in res.stdout.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :", 1)[1].strip()
+                cur = name if any(n in name for n in names) else None
+                if cur:
+                    fns[cur] = {"hgmma": 0, "first": None}
+            elif cur and "HGMMA" in line:
+                fns[cur]["hgmma"] += 1
+                fns[cur]["first"] = fns[cur]["first"] or " ".join(
+                    line.split())
+        out[lib] = fns
     return out
 
 
@@ -4246,7 +4255,9 @@ SCAN_BWD_SHAPES = ((128, 2048, 64, 64, False),   # rwkv6-1.6b: 4 x 32 heads
 # fp32: kernel and plain backward sum in other orders (the scan's over 2,048
 # steps, attention's over up to 16,384 (q, head) terms of dK and dV), so
 # they differ far below 1e-4 of the largest gradient; bf16 attention as the
-# forward's FLASH_TOL (every product in fp32, the outputs rounded once)
+# forward's FLASH_TOL (the tensor-core kernels split P and dS into two bf16
+# parts, sum in fp32 and round the outputs once; a single bf16 rounding of
+# P or dS would not meet it: tests/test_torch_flash_bwd_rounding.py)
 SCAN_BWD_TOL = 1e-4                 # of max(1, max |plain|), per gradient
 TRAIN_ON_OFF_RTOL = {"loss": 1e-5, "grad_norm": 1e-4}
 RESUME_LAYERS = 2
@@ -4456,6 +4467,28 @@ def ssm_bwd_entry(dev, errs, launches) -> dict:
     g = torch.Generator(device=dev).manual_seed(24)
     r, w, k, v, _, _ = wkv_inputs(b, t, dk, dv, g, dev, False)
     dy = torch.randn((b, t, dv), generator=g, device=dev)
+    # the cluster launch: every CTA resident at once at this shape
+    occ = KS.bwd_occupancy(b, dv, dev)
+    log(f"[train] ssm_scan bwd launch {(b, t, dk, dv)}: grid {occ['grid']} "
+        f"CTAs in clusters of {occ['cluster']}, {occ['smem_bytes']} bytes "
+        f"of shared memory a CTA; the card holds "
+        f"{occ['max_active_clusters']} clusters at once, "
+        f"{occ['ctas_per_sm']:.3f} CTAs per SM: one wave {occ['one_wave']}")
+    check(occ["one_wave"], "ssm_scan backward: the train shape's CTAs are "
+          "not all resident at once")
+    # what one call allocates: its outputs and checkpoints, no partial plane
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    KS._backward(r, w, k, v, None, None, dy, None)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    want_bytes = 4 * (3 * b * t * dk + b * t * dv
+                      + KS.bwd_scratch_floats(b, t, dv))
+    log(f"[train] ssm_scan bwd one call: {extra} bytes allocated beyond the "
+        f"inputs (outputs and checkpoints {want_bytes})")
+    check(extra <= want_bytes + (4 << 20),
+          "ssm_scan backward allocates more than its outputs and checkpoints")
     ms = time_cuda(lambda: KS._backward(r, w, k, v, None, None, dy, None),
                    reps=5)
     plain = time_cuda(lambda: KS.ssm_scan_bwd_plain(r, w, k, v, None, None,
@@ -4483,6 +4516,8 @@ def ssm_bwd_entry(dev, errs, launches) -> dict:
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "chunked_torch_bwd_ms": chunked,
             "shape": [b, t, dk, dv], "ns_per_step": ms / t * 1e6,
+            "occupancy": occ, "call_extra_bytes": extra,
+            "checkpoint_bytes": 4 * KS.bwd_scratch_floats(b, t, dv),
             "shapes": errs["shapes"]}
 
 
@@ -4616,10 +4651,10 @@ def train_launch(dev, seed, arch) -> dict:
     parts = {"flash_attention fwd": ("flash_attention_tc_kernel",
                                      "flash_attention_kernel"),
              "flash_attention bwd": ("delta_kernel", "dkdv_kernel",
-                                     "group_sum_kernel", "dq_kernel"),
+                                     "dkdv_tc_kernel", "group_sum_kernel",
+                                     "dq_kernel", "dq_tc_kernel"),
              "ssm_scan fwd": ("ssm_scan_kernel",),
-             "ssm_scan bwd": ("ssm_scan_bwd_kernel", "ssm_bwd_rows_kernel",
-                              "ssm_bwd_du_kernel")}
+             "ssm_scan bwd": ("ssm_scan_bwd_kernel", "ssm_bwd_du_kernel")}
     shares = {}
     for part, names in parts.items():
         us = sum(e - s_ for s_, e, nm in spans
@@ -4769,16 +4804,29 @@ def main(argv=None) -> int:
             log(f"[build] {name} {fn}: {info.get('registers')} registers, "
                 f"{info.get('spill_bytes')} spill bytes, "
                 f"{info.get('static_smem_bytes')} bytes static shared memory")
-    for name in ("chain_scan", "ssm_scan"):
+    for name in ("chain_scan", "ssm_scan", "flash_attention_bwd",
+                 "ssm_scan_bwd"):
         check(ptxas[name] and all(info.get("spill_bytes") == 0
                                   for info in ptxas[name].values()),
               f"{name} spills registers (or ptxas did not report)")
+    # the WKV backward is one kernel (with u, the du pass after it): no
+    # column-partial pass is built
+    scan_fns = list(ptxas["ssm_scan_bwd"])
+    check(all("ssm_scan_bwd_kernel" in fn or "ssm_bwd_du_kernel" in fn
+              for fn in scan_fns),
+          f"ssm_scan_bwd builds other kernels: {scan_fns}")
     hgmma = sass_hgmma(_build)
-    for fn, info in hgmma.items():
-        log(f"[build] sass {fn}: {info['hgmma']} HGMMA, first: "
-            f"{info['first']}")
-    check(len(hgmma) == 5 and all(v["hgmma"] for v in hgmma.values()),
-          "the bf16 flash_attention kernels show no HGMMA in their SASS")
+    for lib, fns in hgmma.items():
+        for fn, info in fns.items():
+            log(f"[build] sass {lib} {fn}: {info['hgmma']} HGMMA, first: "
+                f"{info['first']}")
+    # five head dims: the forward's kernel, the backward's two
+    check(len(hgmma["flash_attention"]) == 5
+          and len(hgmma["flash_attention_bwd"]) == 10
+          and all(v["hgmma"] for fns in hgmma.values()
+                  for v in fns.values()),
+          "a bf16 flash_attention kernel (forward or backward) shows no "
+          "HGMMA in its SASS")
 
     errs = check_kernels(dev)
 
@@ -4874,6 +4922,8 @@ def main(argv=None) -> int:
     train = train_phase(dev, args.seed)
     line["kernels"].extend(train["entries"])
     line["kernels"][-2]["ptxas"] = ptxas["flash_attention_bwd"]
+    line["kernels"][-2]["sass_hgmma"] = {
+        fn: v["hgmma"] for fn, v in hgmma["flash_attention_bwd"].items()}
     line["kernels"][-1]["ptxas"] = ptxas["ssm_scan_bwd"]
     line["train_lm"] = train["train"]
     # the forward kernels' launches on the train path (2 a layer a step)

@@ -1,8 +1,9 @@
 """Build the CUDA sources under ``csrc/`` at first use and load them.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). Libraries land in
+Each ``csrc/<name>.cu`` (with the headers beside it) is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds). Libraries land in
 ``<checkout>/build/repro_torch/<hash of the sources and flags>/``, or under
 ``$REPRO_TORCH_BUILD_DIR`` when set. ``build_all`` compiles every source
 at once, one ``nvcc`` process per file.
@@ -50,8 +51,10 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is (or will be) built."""
+    """Where ``csrc/<name>.cu`` is (or will be) built: the hash covers the
+    source, the shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return _build_root() / digest[:16] / f"lib{name}.so"
 
@@ -99,3 +102,12 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _FUNCS[(name, symbol)] = fn
     return fn
+
+
+def stream(dev) -> tuple:
+    """The device's index and its current stream as a raw pointer (the
+    Python stream object costs several microseconds a call)."""
+    import torch
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)

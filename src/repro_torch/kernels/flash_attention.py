@@ -19,9 +19,11 @@ Training: when q, k or v requires a gradient (and grad mode is on),
 ``torch.autograd.Function``. Its forward also writes the fp32 row
 log-sum-exp lse_i = ln sum_j exp(s_ij) (B, H, Sq); its backward is the
 hand-written ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's backward:
-a delta pass, dK/dV per kv block, dQ per q block, no float atomics), and
-``flash_attention_bwd_plain`` beside it is its plain version. Serving (no
-gradient) takes the path without lse, unchanged.
+a delta pass, dK/dV per kv block, dQ per q block, no float atomics; bf16 on
+the tensor cores with P and dS split into two bf16 parts, fp32 on the fp32
+cores, routed by type as the forward), and ``flash_attention_bwd_plain``
+beside it is its plain version. Serving (no gradient) takes the path
+without lse, unchanged.
 
 ``flash_attention`` runs the plain versions for CPU tensors and launches the
 kernels for CUDA tensors; it never falls back from one to the other.
@@ -40,6 +42,9 @@ from repro_torch.kernels import _build
 Tensor = torch.Tensor
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# the bf16 backward's D and lse2 rows are padded to a multiple of its dQ
+# kernel's q block (csrc/flash_attention_bwd.cu, kRowPad)
+_ROW_PAD = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: number of CUDA forward kernel launches so far (CPU calls do not count)
@@ -118,7 +123,7 @@ def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
                  + [ctypes.c_float] + [ctypes.c_longlong] * 15
                  + [ctypes.c_int, ctypes.c_void_p])
 
@@ -157,14 +162,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window: int):
     if b > 65535 or h > 65535:
         raise ValueError(f"flash_attention: B={b} or H={h} > 65535")
     if q.dtype == torch.bfloat16:
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % 16 or any(st % 8 for st in _tma_strides(x)):
-                raise ValueError(
-                    f"flash_attention: bf16 {name} with strides "
-                    f"{tuple(x.stride())} at a {x.data_ptr() % 16}-byte "
-                    "offset; the tensor-core kernel loads by TMA, which "
-                    "needs a 16-byte aligned start and strides that are "
-                    "multiples of 8 elements")
+        _check_tma("flash_attention", q, k, v)
 
 
 def _tma_strides(x: Tensor):
@@ -175,6 +173,23 @@ def _tma_strides(x: Tensor):
         out.append(x.stride(ax) if x.shape[ax] > 1 else inner)
         inner *= x.shape[ax]
     return out[::-1]
+
+
+def _tma_loadable(x: Tensor) -> bool:
+    """TMA's rule for a bf16 (B, heads, S, hd) view: the hd axis contiguous,
+    a 16-byte aligned start, strides that are multiples of 8 elements."""
+    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
+            and not any(st % 8 for st in _tma_strides(x)))
+
+
+def _check_tma(what: str, q: Tensor, k: Tensor, v: Tensor):
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not _tma_loadable(x):
+            raise ValueError(
+                f"{what}: bf16 {name} with strides {tuple(x.stride())} at a "
+                f"{x.data_ptr() % 16}-byte offset; the tensor-core kernels "
+                "load by TMA, which needs a 16-byte aligned start and "
+                "strides that are multiples of 8 elements")
 
 
 def _forward(q: Tensor, k: Tensor, v: Tensor, window: int, with_lse: bool):
@@ -194,14 +209,12 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, window: int, with_lse: bool):
         return out.zero_(), lse
     fn = _build.function("flash_attention", "flash_attention_launch",
                          _ARGTYPES)
-    dev = q.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    index, stream = _build.stream(q.device)
     strides = [s for x in (q, k, v, out) for s in _tma_strides(x)]
     launches += 1
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(), _DTYPES[q.dtype], b, h,
-             kvh, sq, skv, hd, window, hd ** -0.5, *strides, dev.index or 0,
-             stream)
+             kvh, sq, skv, hd, window, hd ** -0.5, *strides, index, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -210,9 +223,19 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, window: int, with_lse: bool):
 
 def _backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
               do: Tensor, window: int):
-    """The backward kernels on CUDA tensors: (dq, dk, dv), contiguous."""
+    """The backward kernels on CUDA tensors: (dq, dk, dv), contiguous. bf16
+    goes to the tensor-core kernels, which load q, k, v and dO by TMA: q, k
+    or v that TMA cannot load is refused (ValueError), dO is copied to a
+    contiguous tensor first."""
     global bwd_launches
-    if do.stride(3) != 1:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma("flash_attention backward", q, k, v)
+        if not _tma_loadable(do):
+            do = do.contiguous()
+            if not _tma_loadable(do):          # a contiguous view off 16 B
+                do = do.clone()
+    elif do.stride(3) != 1:
         do = do.contiguous()
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -222,20 +245,23 @@ def _backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
     if b == 0 or h == 0 or sq == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     f32 = dict(dtype=torch.float32, device=q.device)
-    dd = torch.empty((b, h, sq), **f32)
+    # bf16: D and lse2 = lse log2(e) padded to a multiple of _ROW_PAD rows
+    rows = -(-sq // _ROW_PAD) * _ROW_PAD if bf16 else sq
+    dd = torch.empty((b, h, rows), **f32)
+    lse2 = torch.empty((b, h, rows), **f32) if bf16 else None
     dk_part = torch.empty((b, h, skv, hd), **f32)
     dv_part = torch.empty((b, h, skv, hd), **f32)
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd_launch",
                          _BWD_ARGTYPES)
-    dev = q.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    index, stream = _build.stream(q.device)
     strides = [s for x in (q, k, v, o, do) for s in _tma_strides(x)]
     bwd_launches += 1
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), dd.data_ptr(), dk_part.data_ptr(),
+             dv.data_ptr(), dd.data_ptr(),
+             None if lse2 is None else lse2.data_ptr(), dk_part.data_ptr(),
              dv_part.data_ptr(), _DTYPES[q.dtype], b, h, kvh, sq, skv, hd,
-             window, hd ** -0.5, *strides, dev.index or 0, stream)
+             window, hd ** -0.5, *strides, index, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")

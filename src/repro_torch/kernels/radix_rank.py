@@ -273,14 +273,6 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _stream(dev: torch.device) -> Tuple[int, int]:
-    """The device's index and its current stream as a raw pointer (the
-    Python stream object costs several microseconds a call)."""
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
-    return index, torch._C._cuda_getCurrentRawStream(index)
-
-
 def radix_rank(keys: Tensor, shift: int = 0, tile: Optional[int] = None
                ) -> Tuple[Tensor, Tensor]:
     """keys (n_chunks, chunk_len) int64 in [0, 2^32) -> (ranks int32 of the
@@ -294,7 +286,7 @@ def radix_rank(keys: Tensor, shift: int = 0, tile: Optional[int] = None
         raise ValueError(f"radix_rank: shift {shift} outside [0, 31]")
     n_chunks, clen = keys.shape
     dev = keys.device
-    index, stream = _stream(dev)
+    index, stream = _build.stream(dev)
     n_tiles = n_chunks * -(-clen // tile)
     scratch = _scratch(dev, stream)
     status, epoch = scratch.status_for(n_tiles)
@@ -320,7 +312,7 @@ def radix_hist(keys: Tensor, key_bits: int = 32, tile: Optional[int] = None
     global hist_launches
     tile = _check_keys(keys, tile, "radix_hist")
     n_chunks, clen = keys.shape
-    index, stream = _stream(keys.device)
+    index, stream = _build.stream(keys.device)
     acc, done = _scratch(keys.device, stream).hist_for(n_chunks)
     hists, starts = torch.empty((2, n_chunks, n_passes, RADIX),
                                 dtype=torch.int32, device=keys.device)
@@ -361,7 +353,7 @@ def radix_pass(keys: Tensor, vals: Optional[Tensor], starts: Tensor,
     out_v = torch.empty(keys.shape, device=keys.device,
                         dtype=torch.int32 if vals is None else vals.dtype)
     n_tiles = n_chunks * -(-keys.shape[1] // tile)
-    index, stream = _stream(keys.device)
+    index, stream = _build.stream(keys.device)
     scratch = _scratch(keys.device, stream)
     status, epoch = scratch.status_for(n_tiles)
     fn = _build.function("radix_rank", "radix_pass_launch", _PASS_ARGS)
@@ -393,7 +385,7 @@ def radix_sort_chunks(keys: Tensor, vals: Optional[Tensor] = None,
     tile = _check_keys(keys, tile, "radix_sort_chunks")
     _check_vals(vals, keys, "radix_sort_chunks")
     n_chunks, clen = keys.shape
-    index, stream = _stream(dev)
+    index, stream = _build.stream(dev)
     scratch = _scratch(dev, stream)
     n_tiles = n_chunks * -(-clen // tile)
     status, epoch = scratch.status_for(n_tiles, n_passes)

@@ -16,13 +16,15 @@ Training: when an input requires a gradient (and grad mode is on),
 ``ssm_scan`` goes through ``SSMScan``, a ``torch.autograd.Function`` whose
 backward is the hand-written ``csrc/ssm_scan_bwd.cu`` (dr, dw, dk, dv, du
 and ds0 from dy and the final state's gradient; it recomputes the states
-from checkpoints every 16 steps instead of undoing steps, which would
-divide by w), with ``ssm_scan_bwd_plain`` beside it as its plain version.
+from checkpoints every 6 steps instead of undoing steps, which would
+divide by w, and launches one thread-block cluster per row, whose CTAs add
+their column sums through distributed shared memory), with
+``ssm_scan_bwd_plain`` beside it as its plain version.
 
 ``ssm_scan`` runs the plain versions for CPU tensors and launches the
 kernels for CUDA tensors; it never falls back from one to the other.
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
-ones (one per backward call, which enqueues two or three kernels).
+ones (one per backward call, which enqueues one kernel, or two with u).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ launches = 0
 bwd_launches = 0
 # the backward kernel's tiling: value columns per CTA, steps per checkpoint,
 # and floats per CTA checkpoint (64 lanes x a 4 x 4 state tile)
-_BWD_COLS, _BWD_CHUNK, _BWD_CKPT = 16, 16, 1024
+_BWD_COLS, _BWD_CHUNK, _BWD_CKPT = 16, 6, 1024
 
 
 def ssm_scan_plain(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
@@ -103,7 +105,8 @@ def ssm_scan_bwd_plain(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_OCC_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
 
 
 def _prepare(r, w, k, v, u, s0):
@@ -152,14 +155,43 @@ def _forward(r, w, k, v, u, s0) -> Tuple[Tensor, Tensor]:
     if b == 0:
         return y, s_final
     fn = _build.function("ssm_scan", "ssm_scan_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    index, stream = _build.stream(dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     launches += 1
     err = fn(ptr(r), ptr(w), ptr(k), ptr(v), ptr(u), ptr(s0), y.data_ptr(),
-             s_final.data_ptr(), b, t, dk, dv, dev.index or 0, stream)
+             s_final.data_ptr(), b, t, dk, dv, index, stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
     return y, s_final
+
+
+def bwd_scratch_floats(b: int, t: int, dv: int) -> int:
+    """fp32 checkpoints the backward kernel keeps: one 4 x 4 tile per lane
+    of each of its b * ceil(dv / 16) CTAs every 6 steps."""
+    return b * -(-dv // _BWD_COLS) * -(-t // _BWD_CHUNK) * _BWD_CKPT
+
+
+def bwd_occupancy(b: int, dv: int, device=None) -> dict:
+    """What the backward's cluster launch at (b, dv) gets on the card: its
+    grid, cluster size and shared memory per CTA, the clusters the device
+    holds at once (cudaOccupancyMaxActiveClusters) and so the CTAs per SM
+    and whether the grid is resident in one wave."""
+    dev = torch.device("cuda" if device is None else device)
+    index, _ = _build.stream(dev)
+    fn = _build.function("ssm_scan_bwd", "ssm_scan_bwd_occupancy",
+                         _OCC_ARGTYPES)
+    clusters, size, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = fn(b, dv, index, ctypes.byref(clusters), ctypes.byref(size),
+             ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"ssm_scan backward occupancy query failed: CUDA "
+                           f"error {err}")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    grid = b * size.value
+    return {"grid": grid, "cluster": size.value,
+            "smem_bytes": smem.value, "max_active_clusters": clusters.value,
+            "ctas_per_sm": clusters.value * size.value / sms,
+            "one_wave": clusters.value * size.value >= grid}
 
 
 def _backward(r, w, k, v, u, s0, dy, ds_final):
@@ -186,18 +218,15 @@ def _backward(r, w, k, v, u, s0, dy, ds_final):
             ds0.copy_(torch.zeros_like(ds0) if ds_final is None
                       else ds_final)
         return dr, dw, dkk, dvv, du, ds0
-    ncb = -(-dv // _BWD_COLS)
-    ckpt = torch.empty((b * ncb * -(-t // _BWD_CHUNK) * _BWD_CKPT,), **f32)
-    part = torch.empty((3 * ncb * b * t * dk,), **f32)
-    du_part = torch.empty((b * ncb * dk,), **f32) if u is not None else None
+    ckpt = torch.empty((bwd_scratch_floats(b, t, dv),), **f32)
+    du_part = torch.empty((b * dk,), **f32) if u is not None else None
     fn = _build.function("ssm_scan_bwd", "ssm_scan_bwd_launch", _BWD_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    index, stream = _build.stream(dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     bwd_launches += 1
     err = fn(ptr(r), ptr(w), ptr(k), ptr(v), ptr(u), ptr(s0), ptr(dy),
              ptr(ds_final), ptr(dr), ptr(dw), ptr(dkk), ptr(dvv), ptr(du),
-             ptr(ds0), ptr(ckpt), ptr(part), ptr(du_part), b, t, dk, dv,
-             dev.index or 0, stream)
+             ptr(ds0), ptr(ckpt), ptr(du_part), b, t, dk, dv, index, stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan backward launch failed: CUDA error "
                            f"{err}")

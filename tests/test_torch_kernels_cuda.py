@@ -862,19 +862,31 @@ def test_moe_dispatch_on_the_card_equals_the_cpu(cuda):
 # for bit across two launches (no floating-point atomics)
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("strided_do", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,kvh,sq,skv,hd,win", [
     (2, 8, 1, 2048, 2048, 256, 0), (2, 4, 4, 128, 128, 64, 0),
     (1, 8, 2, 256, 256, 32, 0), (1, 4, 2, 256, 256, 64, 96),
     (2, 4, 2, 300, 300, 16, 0), (2, 8, 2, 1000, 1000, 128, 0),
-    (1, 4, 2, 200, 333, 64, 0), (1, 4, 2, 333, 200, 64, 50)])
+    (1, 4, 2, 200, 333, 64, 0), (1, 4, 2, 333, 200, 64, 50),
+    # the bf16 tensor-core route at every head dim: MQA, GQA, MHA, windows,
+    # ragged Sq != Skv, rows that see nothing (Sq > Skv with a window)
+    (1, 6, 1, 190, 130, 16, 0), (2, 6, 2, 131, 77, 32, 20),
+    (1, 4, 4, 250, 250, 64, 64), (1, 10, 2, 515, 300, 128, 0),
+    (1, 8, 1, 700, 700, 256, 100), (1, 4, 2, 300, 129, 256, 40)])
 def test_flash_attention_bwd_kernel_close(cuda, dtype, b, h, kvh, sq, skv,
-                                          hd, win):
+                                          hd, win, strided_do):
+    """Each backward route against the plain backward, twice bit for bit;
+    a strided dO (the model's (B, S, H, hd) layout, or a view whose hd axis
+    is not contiguous) is copied first, never refused."""
     g = torch.Generator(device=cuda).manual_seed(sq + skv + hd + win)
     q = torch.randn((b, h, sq, hd), generator=g, device=cuda).to(dtype)
     k = torch.randn((b, kvh, skv, hd), generator=g, device=cuda).to(dtype)
     v = torch.randn((b, kvh, skv, hd), generator=g, device=cuda).to(dtype)
     do = torch.randn((b, h, sq, hd), generator=g, device=cuda).to(dtype)
+    if strided_do:      # hd axis with stride 2: neither route loads it as is
+        do = torch.stack((do, torch.zeros_like(do)), dim=-1)[..., 0]
+        assert do.stride(3) == 2
     before = (KF.launches, KF.bwd_launches)
     out, lse = KF._forward(q, k, v, win, with_lse=True)
     want_out, want_lse = KF.flash_attention_fwd_plain(q, k, v, win)
@@ -890,6 +902,26 @@ def test_flash_attention_bwd_kernel_close(cuda, dtype, b, h, kvh, sq, skv,
         assert torch.equal(a, c)
         assert a.dtype == dtype and a.shape == w.shape
         torch.testing.assert_close(a.float(), w.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_attention_bwd_bf16_refuses_what_tma_cannot_load(cuda):
+    """A bf16 backward call with q, k or v that TMA cannot load raises, and
+    no backward kernel (the SIMT route included) is launched for it."""
+    kv = torch.zeros((1, 1, 8, 32), device=cuda, dtype=torch.bfloat16)
+    good = torch.zeros((1, 2, 8, 32), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    rows36 = torch.zeros((1, 2, 8, 36), device=cuda, dtype=torch.bfloat16)
+    rows40 = torch.zeros((1, 2, 8, 40), device=cuda, dtype=torch.bfloat16)
+    kv36 = torch.zeros((1, 1, 8, 36), device=cuda, dtype=torch.bfloat16)
+    before = KF.bwd_launches
+    for q, k in ((rows36[..., :32], kv), (rows40[..., 1:33], kv),
+                 (good, kv36[..., :32])):
+        with pytest.raises(ValueError, match="TMA"):
+            KF._backward(q, k, kv, good, lse, good, 0)
+    assert KF.bwd_launches == before
+    KF._backward(rows40[..., 8:40], kv, kv, good, lse, good, 0)  # 16 B in
+    torch.cuda.synchronize()
+    assert KF.bwd_launches == before + 1
 
 
 def test_flash_attention_function_on_the_card(cuda):
@@ -916,7 +948,10 @@ def test_flash_attention_function_on_the_card(cuda):
 @pytest.mark.parametrize("full", [False, True])
 @pytest.mark.parametrize("b,t,dk,dv", [(128, 2048, 64, 64), (1, 1000, 16, 16),
                                        (3, 96, 8, 24), (2, 33, 5, 7),
-                                       (2, 50, 64, 128), (4, 17, 1, 1)])
+                                       (2, 50, 64, 128), (4, 17, 1, 1),
+                                       # clusters of 1, 2, 4 and 8 CTAs
+                                       (3, 61, 16, 7), (2, 100, 40, 24),
+                                       (3, 77, 64, 64), (2, 45, 64, 128)])
 def test_ssm_scan_bwd_kernel_close(cuda, b, t, dk, dv, full):
     r, w, k, v, u, s0 = (None if x is None else x.to(cuda) for x in
                          _wkv_inputs(b, t, dk, dv, b + t + dv, full))
@@ -938,6 +973,31 @@ def test_ssm_scan_bwd_kernel_close(cuda, b, t, dk, dv, full):
         assert torch.equal(a, c)
         scale = max(1.0, float(x.abs().max()))
         assert float((a - x).abs().max()) <= 1e-4 * scale
+
+
+def test_ssm_scan_bwd_allocates_no_partial_plane(cuda):
+    """At rwkv6-1.6b's train shape the backward allocates its outputs and
+    its checkpoints and nothing else (no column-partial plane: that was 3 x
+    dv/16 x B*T*dk floats), and the cluster launch is resident in one
+    wave."""
+    b, t, dk, dv = 128, 2048, 64, 64
+    r, w, k, v, _, _ = (None if x is None else x.to(cuda) for x in
+                        _wkv_inputs(b, t, dk, dv, 3, False))
+    dy = torch.randn((b, t, dv), device=cuda)
+    KS._backward(r, w, k, v, None, None, dy, None)      # built, warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got = KS._backward(r, w, k, v, None, None, dy, None)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(cuda) - base
+    outputs = 4 * (3 * b * t * dk + b * t * dv)
+    ckpt = 4 * KS.bwd_scratch_floats(b, t, dv)
+    assert extra <= outputs + ckpt + (4 << 20), (extra, outputs, ckpt)
+    del got
+    occ = KS.bwd_occupancy(b, dv, cuda)
+    assert (occ["grid"], occ["cluster"]) == (512, 4)
+    assert occ["one_wave"], occ
 
 
 def test_ssm_scan_function_on_the_card(cuda):
