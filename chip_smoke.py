@@ -43,13 +43,19 @@ scheduler on contiguous slots and on the paged pool against per-request
 ``generate`` (drop-free, routing pinned for the gates, free runs counted),
 bf16 serving and a profiled prefill split by part (experts, dispatch,
 Mamba scan, ``flash_attention``); and ``musicgen-large`` served through
-``launch.serve`` on prompt embeddings. Last, training: the backward
+``launch.serve`` on prompt embeddings. Then training: the backward
 kernels of ``flash_attention`` and ``ssm_scan`` against their plain
 backwards (fp32 and bf16, each twice, bitwise), an fp32 train step with the
 kernels on against off, ``gemma-2b`` (batch 2 x 2,048) and ``rwkv6-1.6b``
 (4 x 2,048) trained in bf16 through ``launch.train`` at full width and
 depth with every kernel launch counted, and an exact resume after an
-injected failure on a 2-layer cut of ``rwkv6-1.6b``.
+injected failure on a 2-layer cut of ``rwkv6-1.6b``. Last, the launch tools
+(``repro_torch.launch``): the dry-run grid of four archs over the four
+shapes, walked on the meta device in worker processes that start with the
+smoke, and ``launch.perf`` on gemma-2b's bf16 prefill and rwkv6-1.6b's bf16
+train step at 4 x 2,048, with the walk's FLOPs held to ``FlopCounterMode``,
+its kernel charges to the launches, its meta temp bytes to the card's peak
+and ``kernels.work`` to each kernel row's bound.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -59,7 +65,8 @@ repository's ``src/`` beside it. The last line of standard output is
 one entry per kernel, the SpMV and NW numbers (``paper_kernels``), the
 LM paths' serving numbers (``lm``, ``attn_lm``, ``ring_lm``,
 ``spec_ring_lm``, ``moe_lm``, ``hybrid_lm``, ``embeds_lm``), the
-autotune re-sweep (``obs_autotune``) and training (``train_lm``).
+autotune re-sweep (``obs_autotune``), training (``train_lm``) and the
+launch tools (``launch_tools``).
 """
 
 from __future__ import annotations
@@ -4764,6 +4771,194 @@ def train_phase(dev, seed) -> dict:
     return {"entries": entries, "train": out}
 
 
+# --------------------------------------------------------------------------
+# phase 12: the launch tools. (a) The dry-run grid: launch.dryrun.run_cell
+# on meta at full width for four archs over the four SHAPES. Meta touches no
+# card, so the cells run from the smoke's start in GRID_JOBS spawned
+# processes at the lowest CPU priority, beside the card phases, and this
+# phase collects them. (b) launch.perf on the card at
+# two shapes the phases above use: gemma-2b's bf16 prefill and rwkv6-1.6b's
+# bf16 train step, each 4 x 2,048. (c) Checks: the walk's aten FLOPs on the
+# card are FlopCounterMode's, and the meta walk's FLOPs the card walk's; the
+# walk charged each kernel as often as its wrapper's launch counter moved;
+# the meta walk's temp bytes are within 10% of what the call adds to the
+# card's memory; kernels.work over launch.roofline's H100 figures gives the
+# bound() of each kernel row of the kernels line above.
+# --------------------------------------------------------------------------
+
+GRID_ARCHS = ("gemma-2b", "rwkv6-1.6b", "olmoe-1b-7b", "jamba-v0.1-52b")
+# few enough that the card phases keep most of the host's 8 cores
+GRID_JOBS = 3
+# (arch, shape, rows, seq, launches the cell must charge)
+PERF_CELLS = (("gemma-2b", "prefill_32k", 4, 2048, {"flash_attention": 18}),
+              ("rwkv6-1.6b", "train_4k", 4, 2048,
+               {"ssm_scan": 48, "ssm_scan_bwd": 24}))
+MEMORY_TOL = 0.10
+# the roofline numbers the kernels line keeps (the log has the rest)
+ROOFLINE_KEEP = ("hlo_flops_per_device", "hlo_bytes_per_device",
+                 "model_flops_global", "compute_s", "memory_s", "dominant",
+                 "step_lower_bound_s", "useful_flops_ratio")
+
+
+def grid_cell(arch, shape_name, out_dir):
+    """One dry-run cell, in a worker process: its record and seconds."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape_name, out_dir=Path(out_dir),
+                          verbose=False)
+    return rec, time.perf_counter() - t0
+
+
+def start_grid():
+    """Submit every GRID_ARCHS x SHAPES cell to GRID_JOBS spawned processes
+    (sys.path passes to them) at nice 19. Returns (executor, cells,
+    futures); ``dryrun_grid`` collects them, and ``main`` shuts the
+    executor down whatever happens."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch import configs
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cells = [(a, s) for a in GRID_ARCHS for s in configs.SHAPES]
+    ex = ProcessPoolExecutor(
+        GRID_JOBS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=os.nice, initargs=(19,))
+    futures = [ex.submit(grid_cell, a, s, str(out_dir)) for a, s in cells]
+    return ex, cells, futures
+
+
+def dryrun_grid(grid, smi) -> dict:
+    """(a): the grid's records, one line each."""
+    from repro_torch.launch import dryrun
+    ex, cells, futures = grid
+    t0 = time.perf_counter()
+    done = [f.result() for f in futures]
+    ex.shutdown()
+    waited = time.perf_counter() - t0
+    recs = []
+    for (arch, shape_name), (rec, sec) in zip(cells, done):
+        check(rec["status"] in ("OK", "SKIP"),
+              f"dry-run {arch} {shape_name}: {rec['status']} "
+              f"{rec.get('error', '')}")
+        log(f"[launch] dry-run {dryrun.line(rec)} ({sec:.1f} s; {smi})")
+        recs.append({k: rec.get(k) for k in (
+            "arch", "shape", "status", "kind", "params", "active_params",
+            "tokens_per_step", "memory_analysis", "fits_one_card")}
+            | {"roofline": {k: v for k, v in rec.get("roofline", {}).items()
+                            if k in ROOFLINE_KEEP}, "seconds": sec})
+    log(f"[launch] dry-run grid: {len(cells)} cells "
+        f"({sum(r['status'] == 'OK' for r in recs)} OK, "
+        f"{sum(bool(r['fits_one_card']) for r in recs)} fit one H100), "
+        f"{sum(r['seconds'] for r in recs):.1f} s of cells over {GRID_JOBS} "
+        f"processes beside the card phases; {waited:.1f} s waited for here")
+    return {"cells": recs, "cell_s": sum(r["seconds"] for r in recs),
+            "waited_s": waited}
+
+
+def perf_cell(arch, shape_name, rows, seq, want, smi) -> dict:
+    """(b) and (c) for one cell: launch.perf.run on the card, then the
+    FLOP, launch and memory checks."""
+    from repro_torch.launch import perf
+    rec = perf.run(arch, shape_name, batch=rows, seq=seq, topk=12)
+    what = f"perf {arch} {shape_name} {rows} x {seq}"
+    walk, charged = rec["walk"], {k: v["calls"]
+                                  for k, v in rec["walk"]["kernels"].items()}
+    log(f"[launch] {what}: aten FLOP {walk['aten_flops']} on the card, "
+        f"FlopCounterMode {rec['flop_counter_flops']}; walk FLOP on the card "
+        f"{walk['flops']}, on meta {rec['roofline']['hlo_flops_per_device']}"
+        f"; charges {charged}, launches {rec['launches']}")
+    check(walk["aten_flops"] == rec["flop_counter_flops"],
+          f"{what}: the walk's aten FLOPs are not FlopCounterMode's")
+    check(walk["flops"] == rec["roofline"]["hlo_flops_per_device"],
+          f"{what}: the card walk's FLOPs are not the meta walk's")
+    check(charged == rec["launches"] == want,
+          f"{what}: charges {charged}, launches {rec['launches']}, want "
+          f"{want}")
+    meta_temp = rec["memory_analysis"]["temp_size_in_bytes"]
+    card = rec["added_bytes"]
+    rel = abs(meta_temp - card) / card
+    log(f"[launch] {what}: the meta walk's temp {meta_temp} bytes, the call "
+        f"adds {card} bytes on the card (max_memory_allocated): "
+        f"{rel:.4f} apart")
+    check(rel <= MEMORY_TOL, f"{what}: the meta walk's temp bytes are "
+          f"{rel:.4f} from the card's, over {MEMORY_TOL}")
+    log(f"[launch] {what}: step {rec['step_ms']:.3f} ms (median of 5; each "
+        f"{[round(t, 3) for t in rec['step_ms_each']]}), bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['roofline']['dominant']}): "
+        f"{rec['bound_share']:.4f} of the step ({smi})")
+    keep = ("arch", "shape", "batch", "seq", "kind", "params",
+            "tokens_per_step", "memory_analysis", "added_bytes", "launches",
+            "walk", "flop_counter_flops", "step_ms", "step_ms_each",
+            "bound_ms", "bound_share", "stages_s")
+    return {k: rec[k] for k in keep} | {"roofline": {
+        k: v for k, v in rec["roofline"].items() if k in ROOFLINE_KEEP},
+        "memory_rel_diff": rel}
+
+
+def work_bounds(kernels) -> list:
+    """(c): kernels.work at each kernel row's shape, over the H100 figures
+    of launch.roofline, against the bound() the phases above computed."""
+    from repro_torch.kernels import work
+    from repro_torch.launch import roofline
+    by = {k["name"]: k for k in kernels}
+    b, h, kvh, sq, skv, hd, win = by["flash_attention"]["shape"]
+    fb, fh, fkvh, fsq, fskv, fhd, fwin = by["flash_attention_bwd"]["shape"]
+    rows = [
+        ("chain_scan", by["chain_scan"], work.chain_scan(
+            *by["chain_scan"]["shape"]), False, "bound_ms"),
+        ("dp_tile", by["dp_tile"], work.dp_tile(*by["dp_tile"]["shape"]),
+         False, "bound_ms"),
+        ("dp_wavefront", by["dp_wavefront"], work.dp_wavefront(
+            *by["dp_wavefront"]["shape"]), False, "bound_ms"),
+        ("radix_rank", by["radix_rank"], work.radix_rank(
+            *by["radix_rank"]["shape"]), False, "bound_ms"),
+        ("radix_sort_chunks", by["radix_sort_chunks"],
+         work.radix_sort_chunks(*by["radix_sort_chunks"]["shape"]), False,
+         "bound_ms"),
+        ("ssm_scan", by["ssm_scan"], work.ssm_scan(*by["ssm_scan"]["shape"]),
+         False, "bound_ms"),
+        ("flash_attention", by["flash_attention"], work.flash_attention(
+            b, h, kvh, sq, skv, hd, win, 2), True, "bound_ms"),
+        ("flash_attention_bwd", by["flash_attention_bwd"],
+         work.flash_attention_bwd(fb, fh, fkvh, fsq, fskv, fhd, fwin, 2),
+         True, "bound_ms"),
+        ("ssm_scan_bwd", by["ssm_scan_bwd"], work.ssm_scan_bwd(
+            *by["ssm_scan_bwd"]["shape"]), False, "bound_ms"),
+        # the rows' other bounds: 64 radix chunks, fp32 attention
+        ("radix_rank at 64 chunks", by["radix_rank"]["at_64_chunks"],
+         work.radix_rank(*by["radix_rank"]["at_64_chunks"]["shape"]), False,
+         "bound_ms"),
+        ("flash_attention fp32", by["flash_attention"], work.flash_attention(
+            b, h, kvh, sq, skv, hd, win, 4), False, "bound_ms_fp32"),
+        ("flash_attention_bwd fp32", by["flash_attention_bwd"],
+         work.flash_attention_bwd(fb, fh, fkvh, fsq, fskv, fhd, fwin, 4),
+         False, "bound_ms_fp32"),
+    ]
+    out = []
+    for name, entry, w, tc, key in rows:
+        got = roofline.kernel_bound_s(w.flops, w.bytes, tc) * 1e3
+        want = entry[key]
+        rel = abs(got - want) / want
+        log(f"[launch] kernels.work {name} {entry['shape']}: {w.flops} "
+            f"FLOP, {w.bytes} bytes, bound {got:.9f} ms; bound() gave "
+            f"{want:.9f} ms ({rel:.2e} apart)")
+        check(rel <= 1e-9, f"kernels.work's bound of {name} is {got} ms, "
+              f"bound() gave {want} ms")
+        out.append({"name": name, "flops": w.flops, "bytes": w.bytes,
+                    "bound_ms": got, "smoke_bound_ms": want})
+    return out
+
+
+def launch_tools_phase(grid, kernels, smi) -> dict:
+    """Phase 12 (see its header); ``grid`` is ``start_grid``'s."""
+    out = {"grid": dryrun_grid(grid, smi)}
+    memory_reset()
+    out["perf"] = [perf_cell(*cell, smi) for cell in PERF_CELLS]
+    memory_reset()
+    out["work_bounds"] = work_bounds(kernels)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4779,6 +4974,17 @@ def main(argv=None) -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    grid = start_grid()
+    try:
+        return smoke(args, grid)
+    finally:
+        grid[0].shutdown(cancel_futures=True)
+
+
+def smoke(args, grid) -> int:
+    """Every phase in order; ``grid`` is the dry-run grid already running
+    (``start_grid``)."""
+    import torch
     from repro_torch.data import genomics
     from repro_torch.kernels import _build
 
@@ -4933,6 +5139,10 @@ def main(argv=None) -> int:
         "path_launches"] = {"train_lm": train["train"]["rwkv6-1.6b"][
             "launches"]["ssm_scan"]}
     log(f"[train] phase took {time.perf_counter() - t_train:.1f} s")
+
+    t_launch = time.perf_counter()
+    line["launch_tools"] = launch_tools_phase(grid, line["kernels"], smi)
+    log(f"[launch] phase took {time.perf_counter() - t_launch:.1f} s")
     log(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))

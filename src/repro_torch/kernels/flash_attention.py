@@ -28,7 +28,11 @@ without lse, unchanged.
 ``flash_attention`` runs the plain versions for CPU tensors and launches the
 kernels for CUDA tensors; it never falls back from one to the other.
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
-ones (one per backward call, which enqueues four kernels).
+ones (one per backward call, which enqueues four kernels). Inside a cost
+walk (``launch.op_analysis``) each launch is charged its ``kernels.work``,
+and meta tensors take a branch that makes the kernels' outputs and
+workspaces, empty, and charges the launch it stands for; outside a walk
+meta tensors raise like any device without a kernel.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 Tensor = torch.Tensor
 
@@ -212,6 +216,8 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, window: int, with_lse: bool):
     index, stream = _build.stream(q.device)
     strides = [s for x in (q, k, v, out) for s in _tma_strides(x)]
     launches += 1
+    work.charge("flash_attention", b, h, kvh, sq, skv, hd, window,
+                q.element_size(), with_lse=with_lse)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(), _DTYPES[q.dtype], b, h,
              kvh, sq, skv, hd, window, hd ** -0.5, *strides, index, stream)
@@ -256,6 +262,8 @@ def _backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
     index, stream = _build.stream(q.device)
     strides = [s for x in (q, k, v, o, do) for s in _tma_strides(x)]
     bwd_launches += 1
+    work.charge("flash_attention_bwd", b, h, kvh, sq, skv, hd, window,
+                q.element_size())
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), dd.data_ptr(),
@@ -268,14 +276,74 @@ def _backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
     return dq, dk, dv
 
 
+def _on_meta(what: str, *xs: Tensor):
+    """The meta branch's gate: every tensor on meta, and a cost walk open
+    (outside one there is no kernel for meta tensors)."""
+    if any(x.device.type != "meta" for x in xs):
+        raise ValueError(f"{what}: q on meta, another input on "
+                         f"{[x.device.type for x in xs]}")
+    if not work.active():
+        raise ValueError(f"{what}: no kernel for device meta outside a "
+                         "cost walk (launch.op_analysis)")
+
+
+def _meta_forward(q: Tensor, k: Tensor, v: Tensor, window: int,
+                  with_lse: bool):
+    """The forward on meta tensors, inside a cost walk: ``_forward``'s
+    outputs, empty, and one launch's work charged. Nothing runs."""
+    _on_meta("flash_attention", q, k, v)
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if b and h and sq and skv:
+        work.charge("flash_attention", b, h, kvh, sq, skv, hd, window,
+                    q.element_size(), with_lse=with_lse)
+    return out, lse
+
+
+def _meta_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+                   do: Tensor, window: int):
+    """The backward on meta tensors, inside a cost walk: ``_backward``'s
+    outputs and workspaces (D, lse2, the per-query-head dK and dV parts),
+    empty, and one launch's work charged. Nothing runs."""
+    _on_meta("flash_attention backward", q, k, v, o, lse, do)
+    bf16 = q.dtype == torch.bfloat16
+    copy = not _tma_loadable(do) if bf16 else do.stride(3) != 1
+    if copy:
+        do = do.contiguous()
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    dq = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, kvh, skv, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, kvh, skv, hd), dtype=v.dtype, device=q.device)
+    if not (b and h and sq and skv):
+        return dq, dk, dv
+    f32 = dict(dtype=torch.float32, device=q.device)
+    rows = -(-sq // _ROW_PAD) * _ROW_PAD if bf16 else sq
+    scratch = [torch.empty((b, h, rows), **f32),
+               torch.empty((b, h, skv, hd), **f32),
+               torch.empty((b, h, skv, hd), **f32)]
+    if bf16:
+        scratch.append(torch.empty((b, h, rows), **f32))
+    work.charge("flash_attention_bwd", b, h, kvh, sq, skv, hd, window,
+                q.element_size())
+    del scratch
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient: plain forward and backward for
-    CPU tensors, the kernels for CUDA tensors."""
+    CPU tensors, the kernels for CUDA tensors (their meta branches inside a
+    cost walk)."""
 
     @staticmethod
     def forward(ctx, q, k, v, window):
         if q.device.type == "cpu":
             out, lse = flash_attention_fwd_plain(q, k, v, window)
+        elif q.device.type == "meta":
+            out, lse = _meta_forward(q, k, v, window, with_lse=True)
         else:
             out, lse = _forward(q, k, v, window, with_lse=True)
         ctx.window = window
@@ -288,6 +356,8 @@ class FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             grads = flash_attention_bwd_plain(q, k, v, out, lse, do,
                                               ctx.window)
+        elif q.device.type == "meta":
+            grads = _meta_backward(q, k, v, out, lse, do, ctx.window)
         else:
             grads = _backward(q, k, v, out, lse, do, ctx.window)
         return (*grads, None)
@@ -305,4 +375,6 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
         return FlashAttention.apply(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window)
+    if q.device.type == "meta":
+        return _meta_forward(q, k, v, window, with_lse=False)[0]
     return _forward(q, k, v, window, with_lse=False)[0]

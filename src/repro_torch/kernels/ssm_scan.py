@@ -25,6 +25,10 @@ their column sums through distributed shared memory), with
 kernels for CUDA tensors; it never falls back from one to the other.
 ``launches`` counts forward kernel launches and ``bwd_launches`` backward
 ones (one per backward call, which enqueues one kernel, or two with u).
+Inside a cost walk (``launch.op_analysis``) each launch is charged its
+``kernels.work``, and meta tensors take a branch that makes the kernels'
+outputs and workspaces, empty, and charges the launch it stands for;
+outside a walk meta tensors raise like any device without a kernel.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.linear_attn import wkv_steps
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 Tensor = torch.Tensor
 
@@ -158,6 +162,7 @@ def _forward(r, w, k, v, u, s0) -> Tuple[Tensor, Tensor]:
     index, stream = _build.stream(dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     launches += 1
+    work.charge("ssm_scan", b, t, dk, dv, u is not None, s0 is not None)
     err = fn(ptr(r), ptr(w), ptr(k), ptr(v), ptr(u), ptr(s0), y.data_ptr(),
              s_final.data_ptr(), b, t, dk, dv, index, stream)
     if err != 0:
@@ -224,6 +229,8 @@ def _backward(r, w, k, v, u, s0, dy, ds_final):
     index, stream = _build.stream(dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     bwd_launches += 1
+    work.charge("ssm_scan_bwd", b, t, dk, dv, u is not None, s0 is not None,
+                ds_final is not None)
     err = fn(ptr(r), ptr(w), ptr(k), ptr(v), ptr(u), ptr(s0), ptr(dy),
              ptr(ds_final), ptr(dr), ptr(dw), ptr(dkk), ptr(dvv), ptr(du),
              ptr(ds0), ptr(ckpt), ptr(du_part), b, t, dk, dv, index, stream)
@@ -233,9 +240,60 @@ def _backward(r, w, k, v, u, s0, dy, ds_final):
     return dr, dw, dkk, dvv, du, ds0
 
 
+def _meta_prepare(r, w, k, v, u, s0):
+    """The meta branch's gate and ``_prepare``'s conversions: every input
+    on meta, a cost walk open (outside one there is no kernel for meta
+    tensors), the inputs as fp32."""
+    ins = (r, w, k, v, u, s0)
+    if any(x is not None and x.device.type != "meta" for x in ins):
+        raise ValueError("ssm_scan: r on meta, another input on "
+                         f"{[x.device.type for x in ins if x is not None]}")
+    if not work.active():
+        raise ValueError("ssm_scan: no kernel for device meta outside a "
+                         "cost walk (launch.op_analysis)")
+    return [None if x is None else x.to(torch.float32) for x in ins]
+
+
+def _meta_forward(r, w, k, v, u, s0) -> Tuple[Tensor, Tensor]:
+    """The forward on prepared meta tensors, inside a cost walk:
+    ``_forward``'s outputs, empty, and one launch's work charged."""
+    b, t, dk = r.shape
+    dv = v.shape[-1]
+    y = torch.empty((b, t, dv), dtype=torch.float32, device=r.device)
+    s_final = torch.empty((b, dk, dv), dtype=torch.float32, device=r.device)
+    if b:
+        work.charge("ssm_scan", b, t, dk, dv, u is not None, s0 is not None)
+    return y, s_final
+
+
+def _meta_backward(r, w, k, v, u, s0, dy, ds_final):
+    """The backward on prepared meta tensors, inside a cost walk:
+    ``_backward``'s outputs and workspaces (dy's zeros, the checkpoints,
+    du's partials), empty, and one launch's work charged."""
+    b, t, dk = r.shape
+    dv = v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dy = (torch.zeros((b, t, dv), **f32) if dy is None
+          else dy.to(torch.float32).contiguous())
+    if ds_final is not None:
+        ds_final = ds_final.to(torch.float32).contiguous()
+    dr, dw, dkk = (torch.empty((b, t, dk), **f32) for _ in range(3))
+    dvv = torch.empty((b, t, dv), **f32)
+    du = torch.empty((dk,), **f32) if u is not None else None
+    ds0 = torch.empty((b, dk, dv), **f32) if s0 is not None else None
+    if b and t:
+        ckpt = torch.empty((bwd_scratch_floats(b, t, dv),), **f32)
+        du_part = torch.empty((b * dk,), **f32) if u is not None else None
+        work.charge("ssm_scan_bwd", b, t, dk, dv, u is not None,
+                    s0 is not None, ds_final is not None)
+        del ckpt, du_part
+    return dr, dw, dkk, dvv, du, ds0
+
+
 class SSMScan(torch.autograd.Function):
     """``ssm_scan`` with a gradient: plain forward and backward for CPU
-    tensors, the kernels for CUDA tensors."""
+    tensors, the kernels for CUDA tensors (their meta branches inside a cost
+    walk)."""
 
     @staticmethod
     def forward(ctx, r, w, k, v, u, s0):
@@ -245,6 +303,9 @@ class SSMScan(torch.autograd.Function):
         if r.device.type == "cpu":
             ins = (r, w, k, v, u, s0)
             y, s_final = ssm_scan_plain(*ins)
+        elif r.device.type == "meta":
+            ins = _meta_prepare(r, w, k, v, u, s0)
+            y, s_final = _meta_forward(*ins)
         else:
             ins = _prepare(r, w, k, v, u, s0)
             y, s_final = _forward(*ins)
@@ -258,6 +319,8 @@ class SSMScan(torch.autograd.Function):
         ins = [next(saved) if h else None for h in ctx.has]
         if ins[0].device.type == "cpu":
             grads = ssm_scan_bwd_plain(*ins, dy, ds_final)
+        elif ins[0].device.type == "meta":
+            grads = _meta_backward(*ins, dy, ds_final)
         else:
             grads = _backward(*ins, dy, ds_final)
         # grads come as (dr, dw, dk, dv, du, ds0); inputs are (r, w, k, v,
@@ -282,4 +345,6 @@ def ssm_scan(r: Tensor, w: Tensor, k: Tensor, v: Tensor,
         return SSMScan.apply(*ins)
     if r.device.type == "cpu":
         return ssm_scan_plain(*ins)
+    if r.device.type == "meta":
+        return _meta_forward(*_meta_prepare(*ins))
     return _forward(*_prepare(*ins))

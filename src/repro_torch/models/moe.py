@@ -72,10 +72,19 @@ def _router(params, cfg: MoEConfig, xt: Tensor):
     return probs, top_p, top_e
 
 
+def _one_hot(idx: Tensor, n: int) -> Tensor:
+    """``F.one_hot(idx, n)`` as the card runs it, int64 zeros and a scatter
+    of ones, on every device: on meta ``F.one_hot`` compares against an
+    arange instead, so the dry run (``launch.op_analysis``) would walk other
+    ops there than the card runs."""
+    out = torch.zeros(idx.shape + (n,), dtype=torch.int64, device=idx.device)
+    return out.scatter_(-1, idx.unsqueeze(-1), 1)
+
+
 def _aux_loss(cfg: MoEConfig, probs: Tensor, top_e: Tensor) -> Tensor:
     """Switch-style load-balancing loss (fp32 scalar)."""
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(torch.sum(F.one_hot(top_e, cfg.num_experts).to(
+    ce = torch.mean(torch.sum(_one_hot(top_e, cfg.num_experts).to(
         torch.float32), dim=1), dim=0)
     return cfg.router_aux_weight * cfg.num_experts * torch.sum(me * ce)
 
@@ -92,7 +101,7 @@ def _local_dispatch(xt: Tensor, top_e: Tensor, top_p: Tensor, e: int,
     # along the contiguous axis of the (E, N*k) transpose (on the card a
     # scan over the outer axis of (N*k, E) takes 23 ms at olmoe's 65,536
     # entries, this one 0.24 ms: tools/moe_dispatch.py)
-    onehot = F.one_hot(flat_e, e).T.contiguous()
+    onehot = _one_hot(flat_e, e).T.contiguous()
     ranks = torch.cumsum(onehot, dim=1) - onehot
     flat_pos = ranks[flat_e, torch.arange(n * k, device=xt.device)]
     keep = flat_pos < c

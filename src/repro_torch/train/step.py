@@ -39,11 +39,14 @@ class TrainState(NamedTuple):
     ef: Optional[Dict[str, Tensor]] = None   # error feedback (compression)
 
 
-def init_train_state(cfg: ModelConfig, generator: torch.Generator,
+def init_train_state(cfg: ModelConfig,
+                     generator: Optional[torch.Generator],
                      compress: bool = False,
                      device: DeviceLike = None) -> TrainState:
     """Random fp32 masters from ``generator`` (which lives on ``device``,
-    default the card), with gradients on, and zero optimizer state."""
+    default the card), with gradients on, and zero optimizer state. On the
+    ``meta`` device nothing is drawn and the generator may be None
+    (``init_model``'s rule)."""
     dev = resolve_device(device)
     params = T.init_model(cfg, generator, dev)
     params.requires_grad_(True)
