@@ -6,7 +6,8 @@ version on the card, maps reads at the paper's Table IV lengths over a
 chain kernel and the one-launch SW wavefront (``dp_wavefront``), drives one
 mixed submit through ``KernelService``
 (map, seed, chain, sw, dtw, sort, scan) and holds every result to its
-direct call, sorts the sort traffic through the radix kernels
+direct call (and one chain bucket again through ``Dispatcher(mesh=...)``),
+sorts the sort traffic through the radix kernels
 (``ops.radix_sort_chunks``: one histogram launch, then one rank-and-scatter
 launch per 8-bit digit), checks kernels-on against kernels-off, and times
 each kernel. Then the paper's last two kernels in plain torch: SpMV
@@ -19,15 +20,20 @@ flash attention) held against the plain version, one prompt fed through
 gated, the continuous-batching ``serve.Scheduler`` (8 requests on 4 slots,
 every greedy stream against per-request ``generate``, ``score()``, and
 ``KernelService(lm=...)``'s generate/score requests), and bf16 serving
-through ``launch.serve`` (batch 4, 2,048-token prompts, 32 greedy tokens),
+through ``launch.serve`` (batch 4, 2,048-token prompts, 16 greedy tokens),
 ``engine.generate`` (chunked prefill of two ragged prompts) and the
 scheduler (continuous and static admission). Then the paged KV pool
 (``SchedulerConfig(allocator="paged")``): for gemma-2b five fp32 arms
 against the contiguous run (equal memory; a tight pool under recompute,
 swap and reserved admission; prefix sharing) and bf16 occupancy against
 the contiguous pool at equal memory; for RWKV-6 a paged run with no
-page-table group; and gemma3-12b at full width, cut to 12 layers, whose
-sliding-window rings page through a ring group. Then speculative decoding
+page-table group; and gemma3-12b at full width, cut to 6 layers, whose
+sliding-window rings page through a ring group. Then the sharded paged
+pool (``mesh_shards``): gemma-2b's fp32 trace at 1 shard (bitwise the
+unsharded pool, also on ``make_worker_mesh(1)``), 2 and 4 shards, a
+skewed arm (steals) and a swap arm (a swap entry migrated); bf16 at 2
+shards with speculation and in one pair against the unsharded pool;
+RWKV-6 at 2 shards. Then speculative decoding
 (``speculate=3``, bf16) against plain decode on the scheduler trace, for
 gemma-2b on contiguous slots and on the paged pool and for gemma3-12b on
 the paged pool with its ring group (and its ``score()`` with and without
@@ -106,6 +112,14 @@ def check(ok: bool, what: str):
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+@contextlib.contextmanager
+def timed(what: str):
+    """Log ``[time] <what> took <s> s`` when the block ends."""
+    t0 = time.perf_counter()
+    yield
+    log(f"[time] {what} took {time.perf_counter() - t0:.1f} s")
 
 
 def nvidia_smi_line() -> str:
@@ -956,6 +970,32 @@ def service_phase(mapper, reads, main_results, dev, seed):
     log(f"[service] every result equals its direct call on the card "
         f"(map field for field, dtw max abs diff {dtw_err})")
 
+    # one chain bucket again, through a dispatcher over a worker mesh of
+    # the one card: position by position the mesh-less service's results
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.runtime import Dispatcher
+    mesh_svc = KernelService(cfg, reference=mapper.reference, device=dev,
+                             dispatcher=Dispatcher(mesh=make_worker_mesh(1)))
+    bucket0 = min(chain_b)
+    sel = [(p, res) for p, res in by["chain"]
+           if bucketing.round_up(max(len(p["q"]), 1),
+                                 cfg.anchor_bucket) == bucket0]
+    torch.cuda.synchronize()
+    KC.launches = 0
+    got_mesh = mesh_svc.submit([Request("chain", p) for p, _ in sel])
+    mesh_launches = KC.launches
+    same = all(np.array_equal(a["f"], b["f"])
+               and np.array_equal(a["pred"], b["pred"])
+               for (_, a), b in zip(sel, got_mesh))
+    log(f"[service] chain bucket {bucket0} ({len(sel)} requests) through "
+        f"Dispatcher(mesh=make_worker_mesh(1)): {mesh_launches} chain_scan "
+        f"launch; equal to the mesh-less results position by position: "
+        f"{same}")
+    check(same and len(got_mesh) == len(sel),
+          "Dispatcher(mesh=...) chain results differ from mesh=None")
+    check(mesh_launches == 1, f"mesh dispatch launched chain_scan "
+          f"{mesh_launches} times for one bucket")
+
     seed_b = {bucketing.round_up(len(read), mcfg.read_bucket)
               for _, (read, _) in reads}
     buckets = {"map": len(map_b), "chain": len(chain_b), "sw": len(sw_b),
@@ -987,6 +1027,9 @@ def service_phase(mapper, reads, main_results, dev, seed):
           and tally["chain"]["chain_scan"] == len(chain_b),
           "chain_scan launches per kernel differ from the anchor buckets")
     return {"launches": launches, "per_kernel": per_kernel,
+            "mesh_dispatch": {"bucket": bucket0, "requests": len(sel),
+                              "chain_scan_launches": mesh_launches,
+                              "equal": same},
             "sort": [(p, res) for p, res in by["sort"]]}
 
 
@@ -1242,8 +1285,9 @@ def radix_entries(dev, rank_info, errs) -> list:
 # --------------------------------------------------------------------------
 
 # bases of each read mapped with kernels on and off: the plain squire tiles
-# take ~35 s per read at 2,000 bases, a quarter of that at 1,000
-ON_OFF_BASES = 1000
+# take ~35 s per read at 2,000 bases, a quarter of that at 1,000 (500 makes
+# room for the sharded arms)
+ON_OFF_BASES = 500
 
 
 def kernels_on_vs_off(mapper, reads, dev):
@@ -1631,8 +1675,11 @@ def paper_kernels(dev, seed) -> dict:
 
 LM_ARCH = "rwkv6-1.6b"
 LM_PARAMS = 1_583_990_784     # jax.eval_shape of the reference's init_model
-LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
-GEN_PROMPTS, GEN_CHUNK, GEN_NEW = (1000, 1537), 256, 16
+# launch.serve's greedy tokens (16, down from 32, to make room)
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 16
+# generate's ragged prompt rides (796 - 1) mod 256 = 27 tokens on the
+# decode ramp (a 1,000-token prompt rode 231; cut to make room)
+GEN_PROMPTS, GEN_CHUNK, GEN_NEW = (796, 1537), 256, 16
 ON_OFF_RTOL = 1e-3            # of the largest magnitude of each tensor
 DECODE_PROFILE_STEPS = 8
 
@@ -1779,8 +1826,9 @@ SCORE_LENS = (520, 280)
 SERVICE_LENS, SERVICE_NEW = (265, 520, 270), 8
 # the continuous run's steps under the profiler: past the first admissions,
 # arrivals and their chunks among decode ticks (the trace of a whole run
-# takes a minute to read back)
-SCHED_PROFILE_STEPS = (6, 18)
+# takes a minute to read back, and each profiled step a second or more:
+# the window is 4 steps, down from 12, to make room)
+SCHED_PROFILE_STEPS = (6, 10)
 
 
 def sched_requests(vocab, seed):
@@ -1790,7 +1838,9 @@ def sched_requests(vocab, seed):
     q = rng.integers(1, 9, SCHED_REQS)
     r = np.where(q == 8, 0, rng.integers(0, 32, SCHED_REQS))
     lens = 1 + SCHED_CHUNK * q + r
-    mnts = rng.integers(8, 25, SCHED_REQS)
+    # halved (4 to 12 new tokens; the draw is unchanged, so the prompts
+    # are the same) to make room for the sharded arms
+    mnts = rng.integers(8, 25, SCHED_REQS) // 2
     prompts = [rng.integers(0, vocab, ln).astype(np.int32) for ln in lens]
     return prompts, [int(n) for n in mnts]
 
@@ -1799,7 +1849,8 @@ def drive_scheduler(sched, prompts, mnts, window=None, first=SCHED_SLOTS):
     """``first`` requests at once, then one every 3 steps, to the end:
     completions by request index. ``window`` = (first, last) step: those
     steps run under torch.profiler (CUDA activity), whose (wall us, device
-    spans) go into ``sched.profile_window``."""
+    spans) go into ``sched.profile_window``, and the seconds spent reading
+    the trace back into ``sched.profile_read_s``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     rid2i = {}
@@ -1818,8 +1869,10 @@ def drive_scheduler(sched, prompts, mnts, window=None, first=SCHED_SLOTS):
         if prof is not None and steps == window[1]:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6
+            t_read = time.perf_counter()
             prof.stop()
             sched.profile_window = (wall, device_spans(prof))
+            sched.profile_read_s = time.perf_counter() - t_read
             prof = None
         if steps % 3 == 0 and sub < len(prompts):
             rid2i[sched.submit([prompts[sub]],
@@ -2086,9 +2139,10 @@ PREFIX_LEN = 1024
 # bookkeeping, so the same in every run)
 OCC_REQS, OCC_SLOTS, OCC_MAX_NEW, OCC_GATE = 24, 16, 80, 1.5
 # gemma3-12b at full width (d_model 3,840, head_dim 256, window 1,024), cut
-# to two pattern periods (12 layers) so that its fp32 weights fit beside
-# the run and the smoke stays within its time
-RING_ARCH, RING_LAYERS = "gemma3-12b", 12
+# to one pattern period (6 layers: five window-1,024 layers and a global
+# one, so both page-table groups) so that its fp32 weights fit beside the
+# run and the smoke stays within its time (one period, down from two)
+RING_ARCH, RING_LAYERS = "gemma3-12b", 6
 # score() through the paged scheduler against the contiguous one: every
 # position's logprob, where a stream only shows the argmax (at this random
 # init gemma-2b's fp32 streams repeat one token). The same values through
@@ -2108,7 +2162,7 @@ def prefix_requests(vocab, seed):
     q = rng.integers(4, 9, SCHED_REQS)
     r = np.where(q == 8, 0, rng.integers(0, 32, SCHED_REQS))
     lens = 1 + SCHED_CHUNK * q + r
-    mnts = rng.integers(8, 25, SCHED_REQS)
+    mnts = rng.integers(8, 25, SCHED_REQS) // 2     # halved to make room
     prompts = [np.concatenate([prefix, rng.integers(
         0, vocab, ln - PREFIX_LEN).astype(np.int32)]) for ln in lens]
     return prompts, [int(n) for n in mnts]
@@ -2187,13 +2241,15 @@ def paged_run(params, cfg, prompts, mnts, counter, **kw):
     return done, st, wall, launches
 
 
-def paged_fp32(params, cfg, dev, seed, streams, counter) -> dict:
+def paged_fp32(params, cfg, dev, seed, streams, counter):
     """The fp32 gemma-2b weights through the paged scheduler in the five
     arms above, each against the contiguous run (``streams``, and for the
     prefix arm a contiguous run of its own): equal streams under
     stream_gate, preemption in the tight arms, none recomputed under swap
     or when reserved, shared chunks mapped under prefix sharing, and no
-    flash_attention launch (chunks and decode attend over the views)."""
+    flash_attention launch (chunks and decode attend over the views).
+    Returns the numbers and the equal-memory arm's (completions, stats),
+    the sharded arms' oracle."""
     import numpy as np
     import torch
     from repro_torch.serve import Scheduler
@@ -2208,6 +2264,8 @@ def paged_fp32(params, cfg, dev, seed, streams, counter) -> dict:
     for name, kw in arms:
         done, st, wall, launches = paged_run(params, cfg, prompts, mnts,
                                              counter, **kw)
+        if name == "equal":
+            equal = (done, st)
         exact, ties = stream_gate(params, cfg, dev, prompts, mnts, done,
                                   want, f"paged {name} against contiguous")
         out[name] = {"wall_s": wall, "exact_streams": exact,
@@ -2252,7 +2310,7 @@ def paged_fp32(params, cfg, dev, seed, streams, counter) -> dict:
     out["score_max_abs_diff"] = paged_score_gate(
         params, cfg, seed, SCORE_LENS, "fp32 equal memory")
     torch.cuda.empty_cache()
-    return out
+    return out, equal
 
 
 def paged_occupancy_bf16(params, cfg, seed, counter) -> dict:
@@ -2465,10 +2523,13 @@ def count_tick_syncs(sched) -> dict:
     return tally
 
 
-def spec_arm(params, cfg, prompts, mnts, counter, k, **kw) -> dict:
+def spec_arm(params, cfg, prompts, mnts, counter, k, window=None,
+             **kw) -> dict:
     """One drive_scheduler run with speculate=k (``kw`` over sched_config,
     no request cache), the launch count at 0 just before and read just
-    after, host syncs counted per decode tick and per chunk step:
+    after, host syncs counted per decode tick and per chunk step, and with
+    ``window`` the card's busy share over those steps (profiler; the
+    trace's read-back time is taken out of the wall time):
     (completions, numbers)."""
     import torch
     from repro_torch.serve import Scheduler
@@ -2478,10 +2539,15 @@ def spec_arm(params, cfg, prompts, mnts, counter, k, **kw) -> dict:
     torch.cuda.synchronize()
     counter.launches = 0
     t0 = time.perf_counter()
-    done = drive_scheduler(sched, prompts, mnts)
+    done = drive_scheduler(sched, prompts, mnts, window=window)
     wall = time.perf_counter() - t0
     launches = counter.launches
     st = sched.stats()
+    busy = None
+    if window:
+        pwall, spans = sched.profile_window
+        busy = busy_us(spans) / pwall if spans else None
+        wall -= sched.profile_read_s
     toks = st["generated_tokens"]
     ticks = st["decode_steps"]
     out = {"speculate": k, "wall_s": wall, "generated_tokens": toks,
@@ -2491,7 +2557,7 @@ def spec_arm(params, cfg, prompts, mnts, counter, k, **kw) -> dict:
            "host_syncs_decode": syncs["decode"],
            "host_syncs_chunk": syncs["chunk"],
            "host_syncs_per_decode_tick": syncs["decode"] / ticks,
-           "launches": launches,
+           "launches": launches, "busy_share": busy,
            **{key: st[key] for key in (
                "spec.drafted_tokens", "spec.accepted_tokens",
                "spec.rejected_tokens", "spec.rollbacks",
@@ -2544,7 +2610,9 @@ def spec_compare(params, cfg, dev, prompts, mnts, counter, what,
     check(spec["spec.drafted_tokens"] > 0, f"{what}: no draft proposed")
     return {"plain": plain, "spec": spec, "exact_streams": exact,
             "near_ties": ties,
-            "tok_s_ratio": spec["tok_s"] / plain["tok_s"]}
+            "tok_s_ratio": spec["tok_s"] / plain["tok_s"],
+            "streams": [done[i].tokens.tolist()
+                        for i in range(len(prompts))]}
 
 
 def spec_gemma2b(params, cfg, dev, seed, counter) -> dict:
@@ -2874,6 +2942,236 @@ def paged_rwkv(params, cfg, dev, seed, streams, counter) -> dict:
             "launches": launches, **paged_stats(st)}
 
 
+# --------------------------------------------------------------------------
+# phase 7b: the sharded paged pool (SchedulerConfig(mesh_shards=n)) on the
+# paged sub-phases' trace: gemma-2b's fp32 weights at 1 shard (with and
+# without a worker mesh of the one card, bitwise the unsharded equal-memory
+# run), 2 and 4 shards (the equal-memory pool of SHARD_BLOCKS blocks split
+# evenly), a skewed arm (every request placed on shard 0: steals) and a
+# swap arm (the first two requests on shard 0, whose pool they fill
+# exactly: decode growth swaps the younger out, and the steal pass
+# migrates its swap entry to idle shard 1); the bf16 weights at 2 shards
+# with speculate=3 and in one pair (2 shards against the unsharded pool);
+# RWKV-6 in fp32 at 2 shards. With no EOS the bookkeeping (placements,
+# steals, swaps, migrations) does not depend on the model, so the counts
+# were planned on the CPU with a reduced model.
+# --------------------------------------------------------------------------
+
+SHARD_BLOCKS = SCHED_SLOTS * SCHED_MAX_LEN // PAGED_BLOCK     # 576
+SHARD_COUNTS = (2, 4)
+SHARD_CONTROL = ("admitted", "preempted", "chunk_steps", "decode_steps",
+                 "prefill_tokens", "generated_tokens", "steps")
+
+
+def shard_run(params, cfg, prompts, mnts, counter, n, mesh=None,
+              placement=None, first=SCHED_SLOTS, **kw):
+    """One drive_scheduler run of an n-shard paged pool (``kw`` over
+    sched_config; per-shard blocks SHARD_BLOCKS / n unless given),
+    ``placement`` as its placement_fn, the launch count at 0 just before
+    and read just after: (completions, numbers). The ``serve.shard``
+    snapshot must pass validate_shard_metrics."""
+    import torch
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import schema
+    from repro_torch.serve import Scheduler
+    kw.setdefault("num_blocks", SHARD_BLOCKS // n)
+    sched = Scheduler(cfg, params, sched_config(
+        allocator="paged", block_size=PAGED_BLOCK, mesh_shards=n, **kw),
+        mesh=mesh)
+    sched.placement_fn = placement
+    torch.cuda.synchronize()
+    counter.launches = 0
+    t0 = time.perf_counter()
+    done = drive_scheduler(sched, prompts, mnts, first=first)
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    st = sched.stats()
+    shard = sched._shard_obs.metrics()
+    problems = schema.validate_shard_metrics(shard, n)
+    check(problems == [], f"serve.shard at {n} shards: {problems}")
+    snap = obs_metrics.REGISTRY.snapshot()
+    check(snap.get("serve.shard.num_shards") == n,
+          f"serve.shard is not the registry's provider at {n} shards")
+    check(st["blocks_used"] == 0, f"{n} shards: {st['blocks_used']} blocks "
+          "still used after the trace")
+    out = {"shards": n, "mesh": mesh is not None, "wall_s": wall,
+           "launches": launches, "placed": list(sched._shard_placed),
+           "shard_steals": list(sched._shard_steals),
+           **{k: int(st[k]) for k in SHARD_CONTROL + ("steals",)},
+           **paged_stats(st), "swap_migrated_out": st["swap_migrated_out"],
+           "swap_migrated_in": st["swap_migrated_in"], "serve_shard": shard}
+    del sched
+    return done, out
+
+
+def sharded_fp32(params, cfg, dev, seed, equal, counter) -> dict:
+    """The fp32 gemma-2b weights through the sharded pool, against the
+    unsharded equal-memory paged run ``equal`` = (completions, stats) of
+    paged_fp32: 1 shard bitwise (streams, reasons, control counters),
+    without and with make_worker_mesh(1); 2 and 4 shards, the skewed and
+    the swap arm under stream_gate; no flash_attention launch anywhere."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_worker_mesh
+    t_all = time.perf_counter()
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    base_done, base_st = equal
+    want = [base_done[i].tokens for i in range(SCHED_REQS)]
+    out = {"blocks": SHARD_BLOCKS}
+
+    def note(name, r, exact=None, ties=None):
+        log(f"[shard] {cfg.name} fp32 {name}: {r['wall_s']:.2f} s, "
+            f"placed {r['placed']}, steals to {r['shard_steals']}, "
+            f"{r['decode_steps']} decode ticks, {r['chunk_steps']} chunk "
+            f"steps, preempted {r['preempted']}, swapped out "
+            f"{r['swapped_out']}, migrated {r['swap_migrated_out']}/"
+            f"{r['swap_migrated_in']}, {r['launches']} "
+            f"{counter.__name__.split('.')[-1]} launches"
+            + ("" if exact is None else
+               f"; {exact} streams equal the unsharded run's, near-ties "
+               f"{ties}"))
+        check(r["launches"] == 0, f"{name}: {r['launches']} launches, "
+              "expected 0 (chunks and decode attend over the views)")
+
+    for name, mesh in (("1 shard", None),
+                       ("1 shard on make_worker_mesh(1)",
+                        make_worker_mesh(1, axis="slots"))):
+        done, r = shard_run(params, cfg, prompts, mnts, counter, 1,
+                            mesh=mesh)
+        same = all(np.array_equal(done[i].tokens, want[i])
+                   and done[i].reason == base_done[i].reason
+                   for i in range(SCHED_REQS))
+        control = {k: (r[k], int(base_st[k])) for k in SHARD_CONTROL}
+        r["bitwise"] = same
+        note(name, r)
+        log(f"[shard] {name}: streams bitwise the unsharded run's: {same}; "
+            f"control counters (sharded, unsharded) {control}")
+        check(same, f"{name}: streams differ from the unsharded paged run")
+        check(all(a == b for a, b in control.values()),
+              f"{name}: control counters differ {control}")
+        out["mesh1" if mesh else "shard1"] = r
+    for n in SHARD_COUNTS:
+        done, r = shard_run(params, cfg, prompts, mnts, counter, n)
+        r["exact_streams"], r["near_ties"] = stream_gate(
+            params, cfg, dev, prompts, mnts, done, want,
+            f"{n} shards against unsharded")
+        note(f"{n} shards", r, r["exact_streams"], r["near_ties"])
+        out[f"shards{n}"] = r
+    pin = lambda sched, st: 0       # noqa: E731 (every arrival on shard 0)
+    done, r = shard_run(params, cfg, prompts, mnts, counter, 2,
+                        placement=pin)
+    r["exact_streams"], r["near_ties"] = stream_gate(
+        params, cfg, dev, prompts, mnts, done, want, "skewed 2 shards")
+    note("2 shards, skewed onto shard 0", r, r["exact_streams"],
+         r["near_ties"])
+    check(r["shard_steals"][1] >= 1,
+          f"skewed arm: no steal to shard 1 ({r['shard_steals']})")
+    out["skewed"] = r
+    tight = sum(-(-len(p) // PAGED_BLOCK) for p in prompts[:2])
+    done, r = shard_run(params, cfg, prompts[:2], mnts[:2], counter, 2,
+                        placement=pin, first=2, num_blocks=tight,
+                        preempt="swap")
+    r["exact_streams"], r["near_ties"] = stream_gate(
+        params, cfg, dev, prompts[:2], mnts[:2], done, want[:2],
+        "swap arm, 2 shards")
+    note(f"2 shards, {tight} blocks each, swap, skewed", r,
+         r["exact_streams"], r["near_ties"])
+    check(r["swapped_out"] >= 1 and r["swapped_in"] == r["swapped_out"]
+          and r["recomputed_decode_steps"] == 0,
+          f"swap arm: swapped out {r['swapped_out']}, in {r['swapped_in']}, "
+          f"recomputed {r['recomputed_decode_steps']}")
+    check(r["swap_migrated_in"] == r["swap_migrated_out"] >= 1,
+          f"swap arm: migrations out {r['swap_migrated_out']}, in "
+          f"{r['swap_migrated_in']}")
+    out["swap"] = r
+    out["wall_s"] = time.perf_counter() - t_all
+    log(f"[shard] gemma-2b fp32 sharded arms took {out['wall_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_bf16(params, cfg, dev, seed, spec, counter) -> dict:
+    """The bf16 gemma-2b weights: speculate=SPEC_K over 2 shards against
+    spec_gemma2b's unsharded paged speculative streams (``spec``), and one
+    pair, the unsharded paged pool and 2 shards at speculate=0 (tok/s, ITL
+    p50, decode ticks, host syncs a tick, the card's busy share over
+    SCHED_PROFILE_STEPS), the 2-shard streams gated against the unsharded
+    ones."""
+    import torch
+    t_all = time.perf_counter()
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    kw = dict(allocator="paged", block_size=PAGED_BLOCK)
+    out = {}
+    done, r = spec_arm(params, cfg, prompts, mnts, counter, SPEC_K,
+                       mesh_shards=2, num_blocks=SPEC_BLOCKS // 2, **kw)
+    r["exact_streams"], r["near_ties"] = stream_gate(
+        params, cfg, dev, prompts, mnts, done, spec["paged"]["streams"],
+        f"2 shards speculate={SPEC_K} against unsharded",
+        rtol=BF16_TIE_RTOL)
+    check(r["launches"] == 0, f"2-shard speculation: {r['launches']} "
+          "launches, expected 0")
+    log(f"[shard] {cfg.name} bf16 speculate={SPEC_K} over 2 shards: "
+        f"{r['tok_s']:.1f} tok/s, {r['decode_steps']} verify ticks, "
+        f"acceptance {r['acceptance']}; {r['exact_streams']} of "
+        f"{len(prompts)} streams equal the unsharded speculative run's, "
+        f"near-ties {r['near_ties']}")
+    out["spec2"] = r
+    runs = {}
+    for name, extra in (("unsharded", dict(num_blocks=SPEC_BLOCKS)),
+                        ("shards2", dict(mesh_shards=2,
+                                         num_blocks=SPEC_BLOCKS // 2))):
+        runs[name] = spec_arm(params, cfg, prompts, mnts, counter, 0,
+                              window=SCHED_PROFILE_STEPS, **kw, **extra)
+        r = runs[name][1]
+        log(f"[shard] {cfg.name} bf16 pair, {name}: {r['tok_s']:.2f} tok/s, "
+            f"ITL p50 {r['itl_ms_p50']:.2f} ms, TTFT p50 "
+            f"{r['ttft_ms_p50']:.1f} ms, {r['decode_steps']} decode ticks, "
+            f"{r['host_syncs_per_decode_tick']:.2f} host syncs a tick, "
+            f"busy share {r['busy_share']} over steps "
+            f"{SCHED_PROFILE_STEPS}")
+        check(r["launches"] == 0, f"bf16 pair {name}: {r['launches']} "
+              "launches, expected 0")
+        out[name] = r
+    exact, ties = stream_gate(
+        params, cfg, dev, prompts, mnts, runs["shards2"][0],
+        [runs["unsharded"][0][i].tokens for i in range(len(prompts))],
+        "bf16 2 shards against unsharded", rtol=BF16_TIE_RTOL)
+    out["pair_exact_streams"], out["pair_near_ties"] = exact, ties
+    out["pair_tok_s_ratio"] = (out["shards2"]["tok_s"]
+                               / out["unsharded"]["tok_s"])
+    out["wall_s"] = time.perf_counter() - t_all
+    log(f"[shard] gemma-2b bf16 pair: {exact} of {len(prompts)} streams "
+        f"equal, near-ties {ties}; tok/s 2 shards / unsharded "
+        f"{out['pair_tok_s_ratio']:.4f}; the bf16 sharded arms took "
+        f"{out['wall_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rwkv(params, cfg, dev, seed, streams, counter) -> dict:
+    """RWKV-6 in fp32 over 2 shards (zero page-table groups: every leaf
+    dense, stacked), against the contiguous streams under stream_gate,
+    ssm_scan launched once per layer per chunk step as unsharded."""
+    import numpy as np
+    prompts, mnts = sched_requests(cfg.vocab, seed)
+    done, r = shard_run(params, cfg, prompts, mnts, counter, 2)
+    r["exact_streams"], r["near_ties"] = stream_gate(
+        params, cfg, dev, prompts, mnts, done,
+        [np.asarray(x, np.int32) for x in streams],
+        "RWKV 2 shards against contiguous")
+    log(f"[shard] {cfg.name} fp32 2 shards (zero groups): "
+        f"{r['wall_s']:.2f} s, placed {r['placed']}, steals to "
+        f"{r['shard_steals']}; "
+        f"{r['exact_streams']} of {SCHED_REQS} streams equal the contiguous "
+        f"run's, near-ties {r['near_ties']}; {r['launches']} ssm_scan "
+        f"launches over {r['chunk_steps']} chunk steps")
+    check(r["page_groups"] == 0, "sharded RWKV with page-table groups")
+    check(r["launches"] == cfg.num_layers * r["chunk_steps"] > 0,
+          f"ssm_scan launched {r['launches']} times over 2 shards, "
+          f"expected {cfg.num_layers} per chunk step x {r['chunk_steps']}")
+    return r
+
+
 def lm_kernel_vs_plain(dev, seed) -> dict:
     """The full-width model in fp32, one prefill of 4 prompts of 2,048
     tokens with the WKV-scan kernel and with its plain version: last
@@ -2946,12 +3244,14 @@ def lm_kernel_vs_plain(dev, seed) -> dict:
     sched = scheduler_fp32(params, cfg, dev, seed, GVP_RTOL["rwkv"], KS,
                            gate_forward=False)
     paged = paged_rwkv(params, cfg, dev, seed, sched["streams"], KS)
+    sharded = sharded_rwkv(params, cfg, dev, seed, sched["streams"], KS)
     del params
     torch.cuda.empty_cache()
     return {"logits_max_abs_err": err, "logits_max_abs": scale,
             "cache_max_rel_err": cache_rel, "decay_share_below_clamp": share,
             "prefill_ms_kernel": ms_on, "prefill_ms_plain": ms_off,
-            "generate_vs_prefill": gvp, "scheduler": sched, "paged": paged}
+            "generate_vs_prefill": gvp, "scheduler": sched, "paged": paged,
+            "sharded": sharded}
 
 
 def profiled(fn):
@@ -3236,15 +3536,20 @@ def attn_kernel_vs_plain(dev, seed) -> dict:
     del runs, lg_on, c_on, lg_off, c_off, a, b
     torch.cuda.empty_cache()
     gvp = generate_vs_prefill(params, cfg, dev, seed, GVP_RTOL["attn"])
-    sched = scheduler_fp32(params, cfg, dev, seed, GVP_RTOL["attn"], KF,
-                           gate_forward=True)
-    paged = paged_fp32(params, cfg, dev, seed, sched["streams"], KF)
-    del params
+    with timed("gemma-2b fp32 scheduler"):
+        sched = scheduler_fp32(params, cfg, dev, seed, GVP_RTOL["attn"], KF,
+                               gate_forward=True)
+    with timed("gemma-2b fp32 paged arms"):
+        paged, equal = paged_fp32(params, cfg, dev, seed, sched["streams"],
+                                  KF)
+    sharded = sharded_fp32(params, cfg, dev, seed, equal, KF)
+    del params, equal
     torch.cuda.empty_cache()
     return {"logits_max_abs_err": err, "logits_max_abs": scale,
             "cache": cache, "launches": {"kernel": n_on, "blockwise": n_off},
             "prefill_ms_kernel": ms_on, "prefill_ms_blockwise": ms_off,
-            "generate_vs_prefill": gvp, "scheduler": sched, "paged": paged}
+            "generate_vs_prefill": gvp, "scheduler": sched, "paged": paged,
+            "sharded": sharded}
 
 
 def attn_serving(dev, seed) -> dict:
@@ -3374,17 +3679,21 @@ def attn_serving(dev, seed) -> dict:
         f"{out['decode_profiled_ms_per_step']:.3f} ms per step, card busy "
         f"{out['decode_busy_share']}")
     del caches
-    sched = scheduler_bf16(params, cfg, dev, seed, KF)
+    with timed("gemma-2b bf16 scheduler"):
+        sched = scheduler_bf16(params, cfg, dev, seed, KF)
     for admit in ("continuous", "static"):
         check(sched[admit]["launches"] == 0, f"flash_attention launched "
               f"{sched[admit]['launches']} times in the {admit} scheduler "
               "run, expected 0 (chunks and decode attend over the cache)")
     out["scheduler"] = sched
     out["launches"]["scheduler"] = sched["continuous"]["launches"]
-    out["paged_occupancy"] = paged_occupancy_bf16(params, cfg, seed, KF)
+    with timed("gemma-2b bf16 occupancy"):
+        out["paged_occupancy"] = paged_occupancy_bf16(params, cfg, seed, KF)
     t_spec = time.perf_counter()
     out["spec"] = spec_gemma2b(params, cfg, dev, seed, KF)
-    out["obs_overload"] = obs_overload(params, cfg, dev, seed, KF)
+    out["sharded"] = sharded_bf16(params, cfg, dev, seed, out["spec"], KF)
+    with timed("gemma-2b overload"):
+        out["obs_overload"] = obs_overload(params, cfg, dev, seed, KF)
     log(f"[spec] gemma-2b speculation and overload sub-phases took "
         f"{time.perf_counter() - t_spec:.1f} s")
     del params, res
@@ -3656,7 +3965,7 @@ def moe_requests(vocab, seed):
     q = rng.integers(1, 4, MOE_REQS)
     r = rng.integers(0, 32, MOE_REQS)
     lens = 1 + SCHED_CHUNK * q + r
-    mnts = rng.integers(8, 17, MOE_REQS)
+    mnts = rng.integers(8, 17, MOE_REQS) // 2       # halved to make room
     prompts = [rng.integers(0, vocab, ln).astype(np.int32) for ln in lens]
     return prompts, [int(n) for n in mnts]
 
@@ -4114,7 +4423,7 @@ def peak_gb(base: int) -> float:
 
 def moe_phase(dev, seed) -> dict:
     """olmoe-1b-7b at full width and depth: the fp32 arms on weights drawn
-    here, then bf16 serving through launch.serve (batch 4 x 2,048, 32
+    here, then bf16 serving through launch.serve (batch 4 x 2,048, 16
     greedy tokens) and its warm timings and split."""
     import dataclasses
     import torch
@@ -4154,7 +4463,7 @@ def moe_phase(dev, seed) -> dict:
 
 def hybrid_phase(dev, seed) -> dict:
     """jamba-v0.1-52b at full width, HYBRID_LAYERS deep: the fp32 arms,
-    then the same fp32 masters served in bf16 (batch 1 x 2,048, 32 greedy
+    then the same fp32 masters served in bf16 (batch 1 x 2,048, 16 greedy
     tokens) through make_prefill_step / make_decode_step as launch.serve
     drives them, and the warm timings and split."""
     import dataclasses
@@ -4267,6 +4576,8 @@ SCAN_BWD_SHAPES = ((128, 2048, 64, 64, False),   # rwkv6-1.6b: 4 x 32 heads
 # P or dS would not meet it: tests/test_torch_flash_bwd_rounding.py)
 SCAN_BWD_TOL = 1e-4                 # of max(1, max |plain|), per gradient
 TRAIN_ON_OFF_RTOL = {"loss": 1e-5, "grad_norm": 1e-4}
+# gemma-2b's fp32 on/off step at 6 of its 18 layers (cut to make room)
+TRAIN_ON_OFF_LAYERS = 6
 RESUME_LAYERS = 2
 RESUME_STEPS, RESUME_FAIL_AT, RESUME_CKPT_EVERY = 4, 3, 2
 
@@ -4755,14 +5066,20 @@ def train_resume(dev, seed) -> dict:
 def train_phase(dev, seed) -> dict:
     """Phase 11 (see its header); returns the two backward kernels' rows
     of the kernels line and the phase's numbers."""
-    flash_errs = check_flash_bwd(dev)
-    scan_errs = check_ssm_bwd(dev)
-    out = {"on_vs_off": [train_on_vs_off(dev, seed, "gemma-2b", 0, 2),
-                         train_on_vs_off(dev, seed, "rwkv6-1.6b", 4, 4)]}
+    with timed("backward kernels against plain"):
+        flash_errs = check_flash_bwd(dev)
+        scan_errs = check_ssm_bwd(dev)
+    with timed("train steps on against off"):
+        out = {"on_vs_off": [train_on_vs_off(dev, seed, "gemma-2b",
+                                             TRAIN_ON_OFF_LAYERS, 2),
+                             train_on_vs_off(dev, seed, "rwkv6-1.6b", 4,
+                                             4)]}
     memory_reset()
-    out["gemma-2b"] = train_launch(dev, seed, "gemma-2b")
-    out["rwkv6-1.6b"] = train_launch(dev, seed, "rwkv6-1.6b")
-    out["resume"] = train_resume(dev, seed)
+    with timed("launch.train"):
+        out["gemma-2b"] = train_launch(dev, seed, "gemma-2b")
+        out["rwkv6-1.6b"] = train_launch(dev, seed, "rwkv6-1.6b")
+    with timed("train resume"):
+        out["resume"] = train_resume(dev, seed)
     memory_reset()
     flash_launches = out["gemma-2b"]["launches"]["flash_attention_bwd"]
     scan_launches = out["rwkv6-1.6b"]["launches"]["ssm_scan_bwd"]
@@ -5034,7 +5351,8 @@ def smoke(args, grid) -> int:
           "a bf16 flash_attention kernel (forward or backward) shows no "
           "HGMMA in its SASS")
 
-    errs = check_kernels(dev)
+    with timed("check_kernels"):
+        errs = check_kernels(dev)
 
     reference = genomics.make_reference(REF_LEN, seed=args.seed)
     reads = []
@@ -5046,29 +5364,35 @@ def smoke(args, grid) -> int:
         for pair in genomics.sample_reads(reference, prof, READS_PER_PROFILE,
                                           seed=args.seed + 1 + i):
             reads.append((prof.name, pair))
-    mapper, launches, max_n, max_align, results = map_main_path(
-        reference, reads, dev)
+    with timed("reference and main path"):
+        mapper, launches, max_n, max_align, results = map_main_path(
+            reference, reads, dev)
 
-    svc_info = service_phase(mapper, reads[1:], results, dev, args.seed)
-    rank_info = rank_path(svc_info.pop("sort"), dev)
+    with timed("service and rank path"):
+        svc_info = service_phase(mapper, reads[1:], results, dev, args.seed)
+        rank_info = rank_path(svc_info.pop("sort"), dev)
 
-    kernels_on_vs_off(mapper, reads[1:], dev)
+    with timed("kernels on against off"):
+        kernels_on_vs_off(mapper, reads[1:], dev)
 
     t_paper = time.perf_counter()
     paper = paper_kernels(dev, args.seed)
     log(f"[paper] phase took {time.perf_counter() - t_paper:.1f} s")
 
-    line = kernel_line(dev, launches, errs, max_n, max_align)
-    line["kernels"].extend(radix_entries(dev, rank_info, errs))
+    with timed("kernel timings"):
+        line = kernel_line(dev, launches, errs, max_n, max_align)
+        line["kernels"].extend(radix_entries(dev, rank_info, errs))
     by_name = {k["name"]: k for k in line["kernels"]}
     for name in ("chain_scan", "dp_wavefront", "dp_tile"):
         by_name[name]["service_launches"] = svc_info["launches"][name]
     by_name["chain_scan"]["ptxas"] = ptxas["chain_scan"]
     line["service"] = svc_info["per_kernel"]
+    line["mesh_dispatch"] = svc_info["mesh_dispatch"]
     line["paper_kernels"] = paper
     longest = max((r for _, (r, _) in reads[1:]), key=len)
-    traces = [device_trace(mapper, reads[1][1][0][:2000]),
-              device_trace(mapper, longest)]
+    with timed("read traces"):
+        traces = [device_trace(mapper, reads[1][1][0][:2000]),
+                  device_trace(mapper, longest)]
     by_name["dp_wavefront"]["device_ms_longest_read"] = \
         traces[1]["align_device_ms"]
     line["align_trace"] = traces
@@ -5076,18 +5400,23 @@ def smoke(args, grid) -> int:
     torch.cuda.empty_cache()
 
     t_lm = time.perf_counter()
-    on_off = lm_kernel_vs_plain(dev, args.seed)
-    lm = lm_serving(dev, args.seed)
+    with timed("lm fp32 arms"):
+        on_off = lm_kernel_vs_plain(dev, args.seed)
+    with timed("lm bf16 serving"):
+        lm = lm_serving(dev, args.seed)
     lm["fp32_kernel_vs_plain"] = on_off
     lm["launches"]["paged_scheduler"] = on_off["paged"]["launches"]
+    lm["launches"]["sharded_scheduler"] = on_off["sharded"]["launches"]
     line["kernels"].append(ssm_scan_entry(dev, errs, lm))
     line["kernels"][-1]["ptxas"] = ptxas["ssm_scan"]
     line["lm"] = lm
     log(f"[lm] phase took {time.perf_counter() - t_lm:.1f} s")
 
     t_attn = time.perf_counter()
-    attn_on_off = attn_kernel_vs_plain(dev, args.seed)
-    attn = attn_serving(dev, args.seed)
+    with timed("attn fp32 arms"):
+        attn_on_off = attn_kernel_vs_plain(dev, args.seed)
+    with timed("attn bf16 serving"):
+        attn = attn_serving(dev, args.seed)
     attn["fp32_kernel_vs_blockwise"] = attn_on_off
     line["kernels"].append(flash_attention_entry(dev, errs, attn))
     line["attn_lm"] = attn

@@ -6,9 +6,9 @@ global-capacity dispatch of the B*S tokens into an (E, C, D) buffer, the
 expert FFNs as batched products over the expert axis (``torch.bmm``, as the
 reference leaves its ``einsum`` to XLA outside any Pallas kernel), and a
 weighted combine. The reference's ``_moe_shard_map`` (GShard local groups
-with an all-to-all over a 'model' mesh axis) is not ported: the port has no
-mesh yet, so ``moe`` always takes the single-device path. It comes with
-sharding (ROADMAP queue 1 item 7).
+with an all-to-all over a 'model' mesh axis) is not ported: it needs a 2-D
+(data, model) mesh, which the port does not have (ROADMAP.md queue 1 item
+4), so ``moe`` always takes the single-device path.
 
 Dispatch order is the reference's: an entry's rank within its expert is a
 cumsum over the token-major, k-minor flattening of the top-k experts, so

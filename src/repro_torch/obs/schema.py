@@ -92,7 +92,7 @@ PAGED_STATS: Dict[str, type] = {
 #: registry ``serve.shard.*`` gauges (sharded pools only; absent
 #: otherwise). Per-shard keys are ``shard<i>.<suffix>`` for suffixes
 #: SHARD_GAUGE_SUFFIXES, plus the pool-wide totals below. Pinned here so
-#: dashboards can rely on the names (the sharded pool is not ported yet).
+#: dashboards can rely on the names (``serve/scheduler._ShardObs``).
 SHARD_GAUGE_SUFFIXES = (
     "live_slots", "free_slots",         # slot occupancy per shard
     "blocks_free", "blocks_used",       # block-pool levels per shard

@@ -20,17 +20,27 @@ cache_hits`` / ``cache_misses`` counters, ``compile_ms`` (first-use) /
 ``<fn>[b<batch>]``; with a tracer enabled it records a ``bucket-dispatch``
 span on the dispatcher track, and it ticks the installed sampler. Times
 are host milliseconds: a call returns once its work is queued, unless the
-function itself waits for the device. The target is one card, so there is
-no device mesh.
+function itself waits for the device.
+
+With a 1-D worker mesh (``launch.mesh.make_worker_mesh``) the batch is
+padded to a multiple of the worker count by repeating its last row, split
+into contiguous parts, one a device, and ``fn`` runs on each part on its
+device (shared leaves are copied to each device once a call); the parts'
+outputs are concatenated on the first device and the padding is sliced
+off, so results equal the mesh-less call's position by position. The
+reference's ``shard_map`` is one program over the mesh; here each device
+gets its own call.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.launch.mesh import make_worker_mesh  # noqa: F401
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import sampler as obs_sampler
 from repro_torch.obs import trace as obs_trace
@@ -83,8 +93,69 @@ obs_metrics.REGISTRY.register_provider("runtime.dispatch.bucket",
                                        BUCKET_STATS)
 
 
+def _pad_rows(x, pad: int):
+    """``x`` with its last row repeated ``pad`` times on axis 0."""
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+    x = np.asarray(x)
+    return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+
+
+def _to(x, dev: torch.device):
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+def _concat(parts: List, dev: torch.device):
+    """Concatenate the per-device outputs of ``fn`` (tensors, numpy
+    arrays, and tuples, lists or dicts of them) on axis 0, on ``dev``."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([p.to(dev) for p in parts])
+    if isinstance(first, dict):
+        return {k: _concat([p[k] for p in parts], dev) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_concat([p[i] for p in parts], dev)
+                           for i in range(len(first)))
+    return np.concatenate([np.asarray(p) for p in parts])
+
+
+def _head(out, n: int):
+    """The first ``n`` rows of every leaf of ``out``."""
+    if isinstance(out, dict):
+        return {k: _head(v, n) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_head(v, n) for v in out)
+    return out[:n]
+
+
 class Dispatcher:
-    """Dispatch of stage functions on their inputs' device."""
+    """Dispatch of stage functions on their inputs' device, or over a 1-D
+    worker mesh (``mesh``, split along ``axis``, by default its one axis
+    name); see the module docstring."""
+
+    def __init__(self, mesh=None, axis: Optional[str] = None):
+        self.mesh = mesh
+        self.axis = axis or (mesh.axis_names[0] if mesh is not None
+                             else None)
+        if mesh is not None and self.axis not in mesh.axis_names:
+            raise ValueError(f"axis {self.axis!r} not in mesh axes "
+                             f"{mesh.axis_names}")
+
+    @property
+    def num_workers(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[self.axis]
+
+    def _run_mesh(self, fn, leaves: Tuple, axes: Tuple, rows: int):
+        """``fn`` on each device's contiguous part of ``rows`` rows."""
+        devs = self.mesh.devices
+        per = rows // len(devs)
+        outs = []
+        for i, dev in enumerate(devs):
+            part = tuple(_to(x[i * per:(i + 1) * per], dev) if ax == 0
+                         else _to(x, dev)
+                         for x, ax in zip(leaves, axes))
+            outs.append(fn(*part))
+        return outs[0] if len(outs) == 1 else _concat(outs, devs[0])
 
     def run(self, fn, leaves: Sequence, in_axes: Optional[Sequence] = None):
         """Dispatch one bucket batch; see the module docstring."""
@@ -92,11 +163,17 @@ class Dispatcher:
         axes = tuple(0 for _ in leaves) if in_axes is None else tuple(in_axes)
         bsz = next(int(x.shape[0]) for x, ax in zip(leaves, axes)
                    if ax == 0)
+        w = self.num_workers
+        pad = (-bsz) % w
+        if pad:
+            leaves = tuple(_pad_rows(x, pad) if ax == 0 else x
+                           for x, ax in zip(leaves, axes))
         name = _fn_name(fn)
-        key = f"{name}[b{bsz}]"
+        key = f"{name}[b{bsz + pad}]"
         first = key not in BUCKET_STATS.buckets
         t0 = time.perf_counter()
-        out = fn(*leaves)
+        out = (fn(*leaves) if self.mesh is None
+               else self._run_mesh(fn, leaves, axes, bsz + pad))
         t1 = time.perf_counter()
         reg = obs_metrics.REGISTRY
         ms = (t1 - t0) * 1e3
@@ -108,10 +185,10 @@ class Dispatcher:
             reg.histogram("runtime.dispatch.execute_ms").observe(ms)
         BUCKET_STATS.record(key, first, ms)
         obs_trace.get_tracer().complete(
-            "bucket-dispatch", "dispatcher", t0, t1, fn=name, batch=bsz,
-            workers=1, compiled=first)
+            "bucket-dispatch", "dispatcher", t0, t1, fn=name,
+            batch=bsz + pad, workers=w, compiled=first)
         obs_sampler.tick("dispatch.run")
-        return out
+        return _head(out, bsz) if pad else out
 
     def run_one(self, fn, leaves: Sequence):
         key = f"{_fn_name(fn)}{list(_shape_key(leaves))}"

@@ -23,14 +23,26 @@ of block mapping, swap and copy-on-write).
 The verify step (speculative decoding) teacher-forces a row's next token
 and k drafts through the chunk path, accepts the agreeing prefix, and
 rolls the rejected cache writes back from a snapshot of the written span;
-its paged form runs it on the gathered views. The sharded steps come with
-a later slice (ROADMAP queue 1).
+its paged form runs it on the gathered views.
+
+The sharded steps (``make_sharded_decode_step``, ``_chunk_``,
+``_verify_``) serve a slot pool split into shards, each with its own block
+pools (``serve/slots._ShardedPagedBacking``). Without a mesh the shards'
+segments are stacked back to back in one set of tensors, and a step is ONE
+paged step over the whole stack: the caller hands it rows already offset
+into each shard's segment (``stacked_rows``), so a tick launches what an
+unsharded tick launches, with no loop over shards. At one shard that step
+is the unsharded paged step itself. With a mesh each shard's segment
+lives on its own device, the step runs there per shard, and the outputs
+gather on the mesh's first device.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, Optional
+import functools
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -95,10 +107,17 @@ def _filter_topk_topp(lg: Tensor, top_ks: Tensor, top_ps: Tensor) -> Tensor:
     return torch.where(keep_k & keep_p, lg, -torch.inf)
 
 
-def _gumbel(shape, generator: torch.Generator, device) -> Tensor:
+def _gumbel(shape, generator, device) -> Tensor:
+    """Gumbel noise of ``shape`` from ``generator``, or, given a sequence
+    of generators, each one's equal slice of the rows (one a shard)."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
+    if isinstance(generator, torch.Generator):
+        u = torch.rand(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+    else:
+        part = (shape[0] // len(generator),) + tuple(shape[1:])
+        u = torch.cat([torch.rand(part, generator=g, device=device,
+                                  dtype=torch.float32) for g in generator])
     return -torch.log(-torch.log(torch.clamp_min(u, tiny)))
 
 
@@ -108,8 +127,10 @@ def sample_token(logits: Tensor, generator: Optional[torch.Generator] = None,
 
     ``temperature``, ``top_k`` and ``top_p`` may be python scalars or (B,)
     tensors (per-slot knobs). Sampling is Gumbel-max
-    (``argmax(l / T + g)``) with noise from ``generator``; greedy rows stay
-    exactly the argmax of the raw logits whatever the filters.
+    (``argmax(l / T + g)``) with noise from ``generator`` (a sequence of
+    generators draws each one's equal slice of the rows: a sharded pool's
+    per-shard streams); greedy rows stay exactly the argmax of the raw
+    logits whatever the filters.
     """
     lg = logits[:, -1].to(torch.float32)
     greedy = torch.argmax(lg, dim=-1)
@@ -427,6 +448,229 @@ def make_paged_verify_step(cfg: ModelConfig):
         return out_tok, n, lp, split_paged(caches, paged, rows)
 
     return verify
+
+
+# ---------------------------------------------------------------------------
+# cache trees: map, and gather / scatter along the slot axis
+# ---------------------------------------------------------------------------
+
+SLOT_AXIS = 1       # every per_slot_pos cache leaf: (periods, B, ...)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a cache tree (dicts, KVCache, tensors);
+    None (a paged layer's placeholder) stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, attention.KVCache):
+        return attention.KVCache(*(tree_map(fn, *xs)
+                                   for xs in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
+@torch.inference_mode()
+def gather_slots(caches, idx: Tensor):
+    """Slots ``idx`` of every leaf, as new contiguous tensors."""
+    return tree_map(lambda l: l.index_select(SLOT_AXIS, idx), caches)
+
+
+@torch.inference_mode()
+def scatter_slots(caches, sub, idx: Tensor):
+    """Write ``sub`` (slot axis = len(idx)) into slots ``idx``, in place."""
+    tree_map(lambda l, x: l.index_copy_(SLOT_AXIS, idx, x.to(l.dtype)),
+             caches, sub)
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# sharded steps: the paged slot pool split into shards
+# ---------------------------------------------------------------------------
+#
+# Every per-slot cache leaf carries the slot axis at position 1, so a
+# sharded pool without a mesh is the stacked layout: dense leaves hold
+# num_shards * slots_per_shard slots, shard s's slots at [s*k, (s+1)*k);
+# each paged pool holds num_shards segments of (num_blocks + 1) *
+# block_size rows, each segment ending in its OWN trash block. One step
+# over the stack reads each slot through rows offset into its shard's
+# segment. paged_view / paged_writeback take rows past ``total -
+# block_size`` as trash, so a shard's trash rows must map onto the stack's
+# LAST block (``stacked_rows``): a shard's own trash block lies inside the
+# live range, and a write there would land in the next shard's live
+# blocks as far as the view can tell.
+
+def _check_shard_mesh(num_shards: int, mesh, axis):
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    if mesh is not None:
+        if axis not in mesh.axis_names:
+            raise ValueError(f"axis {axis!r} not in mesh axes "
+                             f"{mesh.axis_names}")
+        if mesh.shape[axis] != num_shards:
+            raise ValueError(
+                f"mesh axis {axis!r} has {mesh.shape[axis]} device(s) "
+                f"but num_shards={num_shards}: the slot-pool shard count "
+                "must match the mesh")
+
+
+def stacked_rows(local: np.ndarray, shard: np.ndarray, num_blocks: int,
+                 num_shards: int, block_size: int) -> np.ndarray:
+    """Rows of the stacked pool for shard-local rows ``local`` (B, V) of
+    slots on shards ``shard`` (B,): each shard's rows offset into its
+    segment, its trash rows moved onto the stack's last block."""
+    seg, live = (num_blocks + 1) * block_size, num_blocks * block_size
+    local = np.asarray(local, np.int64)
+    base = np.asarray(shard, np.int64)[:, None] * seg
+    return np.where(local >= live,
+                    num_shards * seg - block_size + (local - live),
+                    base + local)
+
+
+def replicate_params(params, devices) -> List:
+    """``params`` on each of ``devices``: the object itself where it lives
+    there, else a copy (the reference's shard_map replicates the weights
+    over the mesh)."""
+    return [params if params.final_norm["scale"].device == dev
+            else copy.deepcopy(params).to(dev) for dev in devices]
+
+
+def _on(x: Optional[Tensor], dev: torch.device, part: slice):
+    return None if x is None else x[part].to(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def make_sharded_decode_step(cfg: ModelConfig, num_shards: int,
+                             block_size: int, mesh=None,
+                             axis: Optional[str] = None):
+    """decode(params, dense, paged, rows, tokens, pos, temps, generators,
+    top_ks, top_ps) -> (next_tok (B,), logits (B, 1, V), dense) over the
+    sharded pool, B = num_shards * slots_per_shard. ``generators`` is None
+    (every row greedy) or one generator a shard. Without a mesh ``dense``,
+    ``paged`` and ``rows`` are the stacked pool's (``stacked_rows``); with
+    one, ``params``, ``dense``, ``paged`` and ``rows`` are lists with one
+    entry a shard, on its device (``replicate_params``), with shard-local
+    rows. Cached on (cfg, num_shards, block_size, mesh, axis),
+    so another shard count or mesh never reuses a step."""
+    _check_shard_mesh(num_shards, mesh, axis)
+    base = make_paged_decode_step(cfg)
+    if mesh is None:
+        def run(params, dense, paged, rows, tokens, pos, temps, generators,
+                top_ks, top_ps):
+            gen = (None if generators is None
+                   else generators[0] if num_shards == 1 else generators)
+            return base(params, dense, paged, rows, tokens, pos, temps, gen,
+                        top_ks, top_ps, block_size)
+
+        return run
+
+    devs = mesh.devices
+
+    def run_mesh(params, dense, paged, rows, tokens, pos, temps, generators,
+                 top_ks, top_ps):
+        k = tokens.shape[0] // num_shards
+        nxt, logits = [], []
+        for s, dev in enumerate(devs):
+            part = slice(s * k, (s + 1) * k)
+            n_s, lg, dense[s] = base(
+                params[s], dense[s], paged[s], rows[s],
+                tokens[part].to(dev), pos[part].to(dev), temps[part].to(dev),
+                None if generators is None else generators[s],
+                _on(top_ks, dev, part), _on(top_ps, dev, part), block_size)
+            nxt.append(n_s.to(devs[0]))
+            logits.append(lg.to(devs[0]))
+        return torch.cat(nxt), torch.cat(logits), dense
+
+    return run_mesh
+
+
+@functools.lru_cache(maxsize=None)
+def make_sharded_chunk_step(cfg: ModelConfig, num_shards: int,
+                            block_size: int, mesh=None,
+                            axis: Optional[str] = None):
+    """chunk(params, dense, paged, idx, rows, tokens, pos) -> logits over
+    the sharded pool, updating it in place. Without a mesh: ``idx`` (m,)
+    slot ids of the stacked pool, ``rows`` (m, V_key) stacked rows, tokens
+    (m, C), pos (m,), and the logits (m, C, V). With a mesh every argument
+    is a list with one entry a shard (its parameters from
+    ``replicate_params``, local slot ids, local rows, tokens and
+    positions; a shard with no slot has an empty ``idx`` and is skipped),
+    and the result is a list of logits on the first device (None for a
+    skipped shard). Cached as the decode step."""
+    _check_shard_mesh(num_shards, mesh, axis)
+    base = make_paged_chunk_step(cfg)
+    if mesh is None:
+        @torch.inference_mode()
+        def run(params, dense, paged, idx, rows, tokens, pos):
+            logits, sub = base(params, gather_slots(dense, idx), paged, rows,
+                               tokens, pos, block_size)
+            scatter_slots(dense, sub, idx)
+            return logits
+
+        return run
+
+    devs = mesh.devices
+
+    @torch.inference_mode()
+    def run_mesh(params, dense, paged, idx, rows, tokens, pos):
+        out: List[Optional[Tensor]] = []
+        for s, dev in enumerate(devs):
+            if len(idx[s]) == 0:
+                out.append(None)
+                continue
+            ix = torch.as_tensor(np.asarray(idx[s], np.int64)).to(dev)
+            logits, sub = base(params[s],
+                               gather_slots(dense[s], ix), paged[s], rows[s],
+                               tokens[s].to(dev), pos[s].to(dev), block_size)
+            scatter_slots(dense[s], sub, ix)
+            out.append(logits.to(devs[0]))
+        return out
+
+    return run_mesh
+
+
+@functools.lru_cache(maxsize=None)
+def make_sharded_verify_step(cfg: ModelConfig, num_shards: int,
+                             block_size: int, mesh=None,
+                             axis: Optional[str] = None):
+    """verify(params, dense, paged, rows, tokens, pos, prompt_len, max_pos,
+    score, active, temps, top_ks, top_ps, generators) -> (out_tok,
+    accept_n, logprobs, dense) over the sharded pool: the contract of
+    ``make_paged_verify_step`` with the layouts and ``generators`` of
+    ``make_sharded_decode_step``. Cached as the decode step."""
+    _check_shard_mesh(num_shards, mesh, axis)
+    base = make_paged_verify_step(cfg)
+    if mesh is None:
+        def run(params, dense, paged, rows, tokens, pos, prompt_len, max_pos,
+                score, active, temps, top_ks, top_ps, generators):
+            gen = (None if generators is None
+                   else generators[0] if num_shards == 1 else generators)
+            return base(params, dense, paged, rows, tokens, pos, prompt_len,
+                        max_pos, score, active, temps, top_ks, top_ps, gen,
+                        block_size)
+
+        return run
+
+    devs = mesh.devices
+
+    def run_mesh(params, dense, paged, rows, tokens, pos, prompt_len,
+                 max_pos, score, active, temps, top_ks, top_ps, generators):
+        k = tokens.shape[0] // num_shards
+        outs = []
+        for s, dev in enumerate(devs):
+            part = slice(s * k, (s + 1) * k)
+            *got, dense[s] = base(
+                params[s], dense[s], paged[s], rows[s],
+                *(x[part].to(dev) for x in (tokens, pos, prompt_len, max_pos,
+                                            score, active, temps)),
+                _on(top_ks, dev, part), _on(top_ps, dev, part),
+                None if generators is None else generators[s], block_size)
+            outs.append([x.to(devs[0]) for x in got])
+        out_tok, acc, lp = (torch.cat(xs) for xs in zip(*outs))
+        return out_tok, acc, lp, dense
+
+    return run_mesh
 
 
 @torch.inference_mode()

@@ -545,6 +545,8 @@ class SwapStore:
         self.bytes_out = 0      # device -> host (swap_out), cumulative
         self.bytes_in = 0       # host -> device (swap_in), cumulative
         self.rejected = 0       # puts refused by the byte budget
+        self.migrated_out = 0   # entries handed to another shard's store
+        self.migrated_in = 0    # entries accepted from another store
 
     def can_hold(self, nbytes: int) -> bool:
         return self.max_bytes is None \
@@ -585,6 +587,35 @@ class SwapStore:
     def __len__(self) -> int:
         return len(self._d)
 
+    # -- cross-store migration (work-stealing a swapped request) --------
+
+    def migrate_out(self, rid: int) -> SwapEntry:
+        """Remove ``rid`` for transfer to another shard's store. Unlike
+        ``pop`` no bytes move between host and device, so the swap traffic
+        counters stay; ``migrated_out`` records the event."""
+        entry = self._d.pop(rid)
+        self.held_bytes -= entry.nbytes
+        self.migrated_out += 1
+        return entry
+
+    def migrate_in(self, rid: int, entry: SwapEntry) -> int:
+        """Accept an entry migrated from another shard's store, against
+        this store's byte budget. Returns the bytes now held for it; raises
+        over budget (callers check ``can_hold`` first: a refused migration
+        leaves the request on its home shard)."""
+        if rid in self._d:
+            raise ValueError(f"rid {rid} already swapped out")
+        n = entry.nbytes
+        if not self.can_hold(n):
+            self.reject()
+            raise RuntimeError(
+                f"swap budget exceeded: holding {self.held_bytes} + "
+                f"{n} > {self.max_bytes} bytes (migrated rid {rid})")
+        self._d[rid] = entry
+        self.held_bytes += n
+        self.migrated_in += 1
+        return n
+
     def stats(self) -> Dict[str, int]:
         return {"swapped_held": len(self._d),
                 "swap_bytes_held": self.held_bytes,
@@ -593,6 +624,5 @@ class SwapStore:
                 "swap_rejected": self.rejected,
                 "swap_bytes_out": self.bytes_out,
                 "swap_bytes_in": self.bytes_in,
-                # cross-shard migration comes with the sharded pool
-                "swap_migrated_out": 0,
-                "swap_migrated_in": 0}
+                "swap_migrated_out": self.migrated_out,
+                "swap_migrated_in": self.migrated_in}

@@ -74,9 +74,22 @@ knobs ``admit_cap`` and
 ``preempt_override`` (``obs.control``) change admission timing and the
 preemption policy, never a greedy stream.
 
-The sharded pool (``mesh_shards``) raises NotImplementedError after the
-reference's ValueError checks: it comes with a later slice (ROADMAP queue
-1).
+``mesh_shards=n`` (paged) splits the pool into n shards with block pools
+of their own (``serve/slots._ShardedPagedBacking``; ``num_slots`` splits
+evenly, ``num_blocks`` and the swap budget are per shard). Each shard has
+its own FCFS queue: a new request is placed by ``placement``
+(``least_blocks``: the shard with the most free blocks; ``round_robin``)
+or by ``Scheduler.placement_fn``, and with ``steal`` a queue head that
+cannot admit on its full shard moves to an idle shard that can take it now
+(a swapped-out head moves its host swap entry and keeps its progress).
+Preemption picks victims on the grower's own shard. Every tick is still one
+step over the whole pool. ``Scheduler(mesh=...)`` puts each shard on a
+device of a worker mesh (``launch.mesh``). The per-shard gauges are the
+``serve.shard`` registry provider. At one shard the pool runs the
+unsharded steps and sampling generator, so streams are bitwise the
+unsharded pool's; with more shards each shard samples from a generator of
+its own (seeded from ``SchedulerConfig.seed`` and the shard index, see
+``_shard_seed``), and greedy streams are the bar across shard counts.
 """
 
 from __future__ import annotations
@@ -155,10 +168,22 @@ class SchedulerConfig:
     prefix_sharing: bool = False
     # prefix_sharing: LRU entry bound of the prefix index
     prefix_index_capacity: int = 512
-    # the sharded pool (validated as in the reference, then
-    # NotImplementedError)
+    # shard the paged pool: num_slots splits evenly into mesh_shards
+    # shards, each with its own block pools, page tables, swap store and
+    # prefix index (num_blocks and the swap budget are then PER SHARD);
+    # every tick runs one step over the whole pool. Scheduler(mesh=...)
+    # puts each shard on a device. None = the unsharded pool; 1 runs the
+    # sharded control path, bitwise equal to None
     mesh_shards: Optional[int] = None
+    # sharded: the shard a new request lands on. 'least_blocks' takes the
+    # shard with the most free blocks, 'round_robin' cycles;
+    # Scheduler.placement_fn (a callable (scheduler, slot state) -> shard)
+    # overrides both
     placement: str = "least_blocks"
+    # sharded: work stealing. A queue head that cannot admit on its full
+    # shard moves to an idle shard that can admit it now (a swapped-out
+    # head moves its host swap entry and keeps its prefill progress)
+    steal: bool = True
 
 
 @dataclasses.dataclass
@@ -176,6 +201,7 @@ class _Slot:
     accepted: int = 0           # speculative drafts accepted (this request)
     drafted: int = 0            # speculative drafts proposed (this request)
     admit_seq: int = -1         # admission order: preemption evicts max
+    shard: int = 0              # home shard (0 on unsharded pools)
 
 
 @dataclasses.dataclass
@@ -311,14 +337,45 @@ _COUNTER_KEYS = (
     "chunk_steps", "generated_tokens", "prefill_tokens",
     "live_decode_slots", "preempted", "swapped_in", "swapped_out",
     "recomputed_decode_steps", "prefix_shared_tokens",
-    # sharded pools: queue heads migrated off a full shard (the sharded pool
-    # is not ported, so always 0; kept so the keys equal the reference's)
+    # sharded pools: queue heads migrated off a full shard (0 otherwise)
     "steals",
     # speculative decoding (all 0 when speculate=0; real drafts only: the
     # teacher-forced ramp positions are not counted)
     "spec.drafted_tokens", "spec.accepted_tokens", "spec.rejected_tokens",
     "spec.rollbacks",
 )
+
+
+def _shard_seed(seed: int, shard: int) -> int:
+    """Seed of shard ``shard``'s sampling generator on a pool of more than
+    one shard: the first 63-bit word numpy's ``SeedSequence([seed,
+    shard])`` generates, so the shards' streams are independent and a
+    (seed, shard) pair always gives the same one."""
+    word = np.random.SeedSequence([seed, shard]).generate_state(
+        1, np.uint64)[0]
+    return int(word >> np.uint64(1))
+
+
+class _ShardObs:
+    """Registry ``serve.shard`` provider (sharded pools only): the pool's
+    per-shard occupancy (``shard<i>.live_slots`` / ``free_slots`` and block
+    and swap levels) and the scheduler's ``shard<i>.placed`` / ``steals``
+    / ``queued`` with the pool-wide ``steals``. The scheduler holds the
+    strong reference (the registry keeps providers weakly)."""
+
+    def __init__(self, sched: "Scheduler"):
+        self._sched = sched
+
+    def metrics(self) -> dict:
+        sched = self._sched
+        out = dict(sched.slots.shard_metrics())
+        for s in range(sched.slots.num_shards):
+            out[f"shard{s}.placed"] = sched._shard_placed[s]
+            out[f"shard{s}.steals"] = sched._shard_steals[s]
+            out[f"shard{s}.queued"] = len(sched._queues[s])
+        out["num_shards"] = sched.slots.num_shards
+        out["steals"] = int(sched.counters["steals"])
+        return out
 
 
 def _token_logprobs(logits: Tensor, targets: np.ndarray) -> np.ndarray:
@@ -331,7 +388,8 @@ def _token_logprobs(logits: Tensor, targets: np.ndarray) -> np.ndarray:
 
 class Scheduler:
     """submit(prompts) / step() / drain() continuous-batching engine. The
-    pool lives on the device of ``params``."""
+    pool lives on the device of ``params``, or on ``mesh``'s devices (one
+    shard each; needs ``SchedulerConfig.mesh_shards``)."""
 
     def __init__(self, cfg: ModelConfig, params,
                  sched: SchedulerConfig = SchedulerConfig(),
@@ -383,10 +441,6 @@ class Scheduler:
                     f"{sched.speculate + 1} exceeds the smallest "
                     f"attention view length {min_view} (the rollback "
                     "scatter needs distinct ring rows)")
-        if sched.mesh_shards is not None:
-            raise NotImplementedError(
-                "SchedulerConfig mesh_shards is not ported yet: it comes "
-                "with the sharded pool (ROADMAP queue 1)")
         # validates temperature/top_k/top_p ranges (ValueError on bad)
         engine.SamplingPolicy(sched.temperature, sched.top_k, sched.top_p)
         self.device = params.final_norm["scale"].device
@@ -402,8 +456,19 @@ class Scheduler:
             swap_bytes_budget=sched.swap_bytes_budget,
             prefix_sharing=sched.prefix_sharing,
             prefix_align=math.lcm(sched.prefill_chunk, sched.block_size),
-            prefix_capacity=sched.prefix_index_capacity, device=self.device)
-        self._queue: "collections.deque[_Slot]" = collections.deque()
+            prefix_capacity=sched.prefix_index_capacity,
+            mesh_shards=sched.mesh_shards, mesh=mesh, device=self.device)
+        # one FCFS queue per shard (exactly one on unsharded pools, where
+        # arrival order and head-of-line admission are the single queue's)
+        n = self.slots.num_shards
+        self._queues: List["collections.deque[_Slot]"] = [
+            collections.deque() for _ in range(n)]
+        self._rr_next = 0               # round_robin placement cursor
+        # pluggable placement: fn(scheduler, _Slot) -> shard index;
+        # overrides SchedulerConfig.placement when set
+        self.placement_fn = None
+        self._shard_placed = [0] * n
+        self._shard_steals = [0] * n
         self._by_slot: Dict[int, _Slot] = {}
         self._inflight: Dict[Tuple, List[int]] = {}
         self._fresh: List[int] = []     # finished, not yet handed out
@@ -412,6 +477,15 @@ class Scheduler:
         self.request_cache = RequestCache(sched.request_cache_size)
         self._gen = torch.Generator(device=self.device).manual_seed(
             sched.seed)
+        # what a sampled tick draws from: the generator itself unsharded,
+        # one a shard (each on its shard's device) on a sharded pool
+        self._gens = self._gen
+        if self.slots.sharded:
+            devs = (mesh.devices if mesh is not None
+                    else [self.device] * n)
+            self._gens = [self._gen] if n == 1 else [
+                torch.Generator(device=d).manual_seed(_shard_seed(
+                    sched.seed, s)) for s, d in enumerate(devs)]
         self._next_rid = 0
         self._next_seq = 0          # admission sequence (preempt youngest)
         self.counters = collections.Counter(dict.fromkeys(_COUNTER_KEYS, 0))
@@ -432,6 +506,11 @@ class Scheduler:
         # closed at first token / preempt / retire (tracer enabled only)
         self._open_phase: Dict[int, Tuple[str, float, int]] = {}
         obs_metrics.REGISTRY.register_provider("serve", self)
+        self._shard_obs = None
+        if self.slots.sharded:
+            self._shard_obs = _ShardObs(self)
+            obs_metrics.REGISTRY.register_provider("serve.shard",
+                                                   self._shard_obs)
 
     @property
     def tracer(self) -> obs_trace.Tracer:
@@ -537,9 +616,36 @@ class Scheduler:
                              logprobs=None if lps is None else lps.copy())
                 return rid
             self._inflight[key] = []
-        self._queue.append(_Slot(rid=rid, prompt=p, max_new_tokens=mnt,
-                                 policy=policy, mode=mode))
+        self._enqueue(_Slot(rid=rid, prompt=p, max_new_tokens=mnt,
+                            policy=policy, mode=mode))
         return rid
+
+    def _place(self, st: _Slot) -> int:
+        """The home shard of a new request (0 on unsharded pools).
+        'least_blocks' takes the shard with the most free blocks, ties to
+        the shorter queue, then the lower index; 'round_robin' cycles;
+        ``placement_fn`` overrides both."""
+        n = self.slots.num_shards
+        if n == 1:
+            return 0
+        if self.placement_fn is not None:
+            shard = int(self.placement_fn(self, st))
+            if not 0 <= shard < n:
+                raise ValueError(f"placement_fn returned shard {shard} "
+                                 f"(pool has {n})")
+            return shard
+        if self.sched.placement == "round_robin":
+            shard = self._rr_next
+            self._rr_next = (self._rr_next + 1) % n
+            return shard
+        return min(range(n),
+                   key=lambda s: (-self.slots.shard_free_blocks(s),
+                                  len(self._queues[s]), s))
+
+    def _enqueue(self, st: _Slot):
+        st.shard = self._place(st)
+        self._shard_placed[st.shard] += 1
+        self._queues[st.shard].append(st)
 
     # -- the scheduling loop -------------------------------------------------
 
@@ -561,7 +667,7 @@ class Scheduler:
         yet handed out (by an earlier step() or drain()), in rid order.
         ``results`` archives every completion until the caller pops it."""
         fresh: List[int] = []
-        while self._queue or self._by_slot:
+        while any(self._queues) or self._by_slot:
             fresh.extend(c.rid for c in self.step())
         fresh.extend(self._fresh)   # cache hits finished at submit time
         self._fresh.clear()
@@ -569,7 +675,7 @@ class Scheduler:
 
     @property
     def pending(self) -> int:
-        return len(self._queue)
+        return sum(len(q) for q in self._queues)
 
     @property
     def live(self) -> int:
@@ -581,8 +687,10 @@ class Scheduler:
         overload signal and actuator knobs the SLO/control loop reads.
         ``stats()`` = this + the slot pool's keys."""
         decode_steps = self.counters["decode_steps"]
-        head_wait = (time.perf_counter() - self._tl[self._queue[0].rid]
-                     .submit_t) if self._queue else 0.0
+        heads = [q[0] for q in self._queues if q]
+        # the oldest queue head across shards (one queue unsharded)
+        head_wait = (time.perf_counter() - min(
+            self._tl[st.rid].submit_t for st in heads)) if heads else 0.0
         out = {**{k: int(v) for k, v in self.counters.items()},
                "pending": self.pending,
                "live": len(self._by_slot),
@@ -609,22 +717,75 @@ class Scheduler:
     # -- internals -----------------------------------------------------------
 
     def _admit(self):
-        """FCFS with head-of-line blocking: while the queue head cannot
-        admit (no free slot, or, paged, not its blocks) nothing behind it
-        jumps the line. While backpressure is engaged, at most
-        ``admit_cap`` requests admit per tick (still in FCFS order)."""
+        """FCFS per shard with head-of-line blocking: while a queue head
+        cannot admit (no free slot, or, paged, not its blocks) nothing
+        behind it on that shard jumps the line; the steal pass runs first.
+        While backpressure is engaged, at most ``admit_cap`` requests
+        admit per tick (still in FCFS order)."""
         if self.sched.admit == "static" and self._by_slot:
             return      # static batching: wait for the whole batch
+        self._steal_rebalance()
         admitted = 0
-        while self._queue and (self.admit_cap is None
-                               or admitted < self.admit_cap):
-            if not self._admit_head():
-                return
-            admitted += 1
+        for shard, q in enumerate(self._queues):
+            while q:
+                if self.admit_cap is not None and admitted >= self.admit_cap:
+                    return
+                if not self._admit_head(shard, q):
+                    break           # head-of-line blocked: next shard
+                admitted += 1
 
-    def _admit_head(self) -> bool:
-        """Try to admit the queue head; True = admitted (and popped)."""
-        st = self._queue[0]
+    def _head_admissible(self, shard: int, st: _Slot) -> bool:
+        """Could ``st`` admit now? A swapped-out request checks the shard
+        whose store holds its entry, a fresh one ``shard``: the checks
+        ``_admit_head`` makes before it claims."""
+        if self.slots.is_swapped(st.rid):
+            return self.slots.can_admit_swapped(st.rid)
+        need = len(st.prompt) + (
+            st.max_new_tokens if self.sched.admission == "reserved" else 0)
+        pr = st.prompt if st.mode == "generate" else None
+        return self.slots.can_admit(
+            need, prompt=pr, span=len(st.prompt) + st.max_new_tokens,
+            shard=shard if self.slots.sharded else None)
+
+    def _steal_rebalance(self):
+        """Work stealing (sharded pools): a queue head that cannot admit
+        on its home shard moves to an IDLE shard (empty queue) that can
+        admit it now, the one with the most free blocks, instead of
+        blocking behind a full shard. A swapped-out head moves its host
+        swap entry between the shards' stores (budget and blocks checked
+        first; a refusal means no steal), so it keeps its progress."""
+        n = self.slots.num_shards
+        if not self.sched.steal or n < 2:
+            return
+        for s, q in enumerate(self._queues):
+            if not q:
+                continue
+            st = q[0]
+            if self._head_admissible(s, st):
+                continue            # admits normally this tick
+            swapped = self.slots.is_swapped(st.rid)
+            cands = [d for d in range(n)
+                     if d != s and not self._queues[d]
+                     and (self.slots.can_steal_swapped(st.rid, d)
+                          if swapped else self._head_admissible(d, st))]
+            if not cands:
+                continue
+            d = max(cands, key=self.slots.shard_free_blocks)
+            if swapped and not self.slots.migrate_swapped(st.rid, d):
+                continue
+            q.popleft()
+            st.shard = d
+            self._queues[d].append(st)
+            self.counters["steals"] += 1
+            self._shard_steals[d] += 1
+            self.tracer.instant("steal", "scheduler", rid=st.rid,
+                                src_shard=s, dst_shard=d)
+
+    def _admit_head(self, shard: int, q) -> bool:
+        """Try to admit ``q``'s head onto ``shard``; True = admitted (and
+        popped), False = head-of-line blocked."""
+        st = q[0]
+        sh = shard if self.slots.sharded else None
         swapped_in = False
         if self.slots.is_swapped(st.rid):
             # resume a swap-preempted request: its saved blocks are remapped
@@ -647,10 +808,11 @@ class Scheduler:
                 if self.sched.admission == "reserved" else 0)
             span = len(st.prompt) + st.max_new_tokens
             pr = st.prompt if st.mode == "generate" else None
-            if not self.slots.can_admit(need, prompt=pr, span=span):
+            if not self.slots.can_admit(need, prompt=pr, span=span,
+                                        shard=sh):
                 return False
             slot = self.slots.alloc(st.rid, prompt_len=need, prompt=pr,
-                                    span=span)
+                                    span=span, shard=sh)
             start = self.slots.prefill_start(slot)
             if start:
                 # the leading `start` positions were mapped to index-held
@@ -659,7 +821,7 @@ class Scheduler:
                 st.ctx = start
                 st.chunk_tokens = start
                 self.counters["prefix_shared_tokens"] += start
-        self._queue.popleft()
+        q.popleft()
         st.admit_seq = self._next_seq
         self._next_seq += 1
         self._by_slot[slot] = st
@@ -714,7 +876,10 @@ class Scheduler:
             st.out = []
             st.logprobs = []    # a score restart collects from scratch
         st.admit_seq = -1
-        self._queue.appendleft(st)
+        # back to the FRONT of its home shard's queue (the shard the slot
+        # lived on, where a swapped entry's bytes are parked)
+        st.shard = self.slots.shard_of_slot(slot)
+        self._queues[st.shard].appendleft(st)
         self.counters["preempted"] += 1
         tl.preemptions += 1
 
@@ -726,9 +891,13 @@ class Scheduler:
         left), and submit checked that it fits an empty pool, so the pool
         always makes progress. ``write_from`` bounds the copy-on-write scan
         (a verify tick writes a span, not one position). Returns False iff
-        ``slot`` was preempted."""
+        ``slot`` was preempted. Victims come from the grower's own shard:
+        block pools are per shard, so evicting elsewhere frees nothing it
+        can use."""
+        shard = self.slots.shard_of_slot(slot)
         while not self.slots.ensure(slot, upto_pos, write_from=write_from):
-            victim = max(self._by_slot,
+            victim = max((s for s in self._by_slot
+                          if self.slots.shard_of_slot(s) == shard),
                          key=lambda s: self._by_slot[s].admit_seq)
             self._preempt(victim)
             if victim == slot:
@@ -850,7 +1019,7 @@ class Scheduler:
                 self.params, self._tensor(toks, torch.int64),
                 self._tensor(pos, torch.int64),
                 self._tensor(temps, torch.float32),
-                self._gen if sampled else None,
+                self._gens if sampled else None,
                 self._tensor(top_ks, torch.int64) if sampled else None,
                 self._tensor(top_ps, torch.float32) if sampled else None)
             nxt = nxt.cpu().numpy()
@@ -985,7 +1154,7 @@ class Scheduler:
                 self._tensor(temps, torch.float32),
                 self._tensor(top_ks, torch.int64) if sampled else None,
                 self._tensor(top_ps, torch.float32) if sampled else None,
-                self._gen if sampled else None)
+                self._gens if sampled else None)
             out_tok = out_tok.cpu().numpy()
             acc_n = acc_n.cpu().numpy()
             lp = lp.cpu().numpy()

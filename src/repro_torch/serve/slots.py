@@ -1,5 +1,5 @@
 """SlotManager: a fixed pool of cache slots for continuous batching (port of
-``repro.serve.slots``, without the sharded pool).
+``repro.serve.slots``).
 
 The pool holds B cache slots over the engine's caches
 (``transformer.init_caches(per_slot_pos=True)``): a request is allocated a
@@ -21,6 +21,13 @@ changes, only the masks do. Two storage backings sit behind one facade:
     layout, so greedy streams do too. Preemption can swap a slot's blocks
     to host tensors, and prefix sharing maps indexed prompt blocks
     read-shared with copy-on-write.
+  * sharded    - the paged pool split into ``mesh_shards`` shards, each
+    with its own block pools, page tables, swap store and prefix index
+    (``_ShardState``): block ids never cross shards, and the one channel
+    between them is the migration of a parked swap entry (work stealing).
+    Without a mesh the shards' segments are stacked in one set of tensors
+    and a tick is one paged step over the stack; with a mesh each shard
+    lives on its own device (``engine.make_sharded_*_step``).
 
 Every cache leaf carries the slot axis at position 1 ((periods, B, ...)),
 so gather, scatter and reset are ``index_select`` / ``index_copy_`` along
@@ -48,37 +55,10 @@ from repro_torch.serve.paging import (BlockPool, PageTable, PrefixIndex,
 
 Tensor = torch.Tensor
 
-_SLOT_AXIS = 1      # every per_slot_pos cache leaf: (periods, B, ...)
-
-_SHARDED = "the sharded pool (ROADMAP queue 1)"
-
-
-def _tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of a cache tree (dicts, KVCache, tensors);
-    None (a paged layer's placeholder) stays None."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, attention.KVCache):
-        return attention.KVCache(*(_tree_map(fn, *xs)
-                                   for xs in zip(tree, *rest)))
-    return fn(tree, *rest)
-
-
-@torch.inference_mode()
-def _gather(caches, idx: Tensor):
-    """Slots ``idx`` of every leaf, as new contiguous tensors."""
-    return _tree_map(lambda l: l.index_select(_SLOT_AXIS, idx), caches)
-
-
-@torch.inference_mode()
-def _scatter(caches, sub, idx: Tensor):
-    """Write ``sub`` (slot axis = len(idx)) into slots ``idx``, in place."""
-    _tree_map(lambda l, s: l.index_copy_(_SLOT_AXIS, idx, s.to(l.dtype)),
-              caches, sub)
-    return caches
+_SLOT_AXIS = engine.SLOT_AXIS
+_tree_map = engine.tree_map
+_gather = engine.gather_slots
+_scatter = engine.scatter_slots
 
 
 def _pooled_chunk_step(cfg: ModelConfig):
@@ -232,7 +212,13 @@ class _PagedBacking:
     length (global KV, and window rings when ``paged_window``); the other
     per-slot leaves (RWKV state, rings kept dense) keep the contiguous
     layout in ``dense``. A model with no attention (RWKV) runs with zero
-    groups: every leaf is dense."""
+    groups: every leaf is dense.
+
+    Every device operation goes through the ``_dev_*`` hooks, which reach
+    the tensors through ``_dense_at``, ``_pools`` and ``_rows_of``: a
+    shard of a stacked pool (``_ShardState``, ``create_arrays=False``)
+    overrides those three to address its segment of the owner's tensors
+    and keeps the host bookkeeping here as it is."""
 
     is_paged = True
 
@@ -243,25 +229,31 @@ class _PagedBacking:
                  swap_bytes_budget: Optional[int] = None,
                  prefix_sharing: bool = False,
                  prefix_align: Optional[int] = None,
-                 prefix_capacity: int = 512):
+                 prefix_capacity: int = 512,
+                 create_arrays: bool = True, template=None):
         self.cfg = cfg
         self.num_slots = num_slots
         self.cache_slots = cache_slots
         self.device = device
         self.block_size = block_size
-        paged_kw = dict(per_slot_pos=True, device=device,
-                        paged_global_attn=True,
-                        paged_window_attn=paged_window)
-        with torch.inference_mode():
-            self.dense = T.init_caches(cfg, num_slots, cache_slots,
-                                       **paged_kw)
-            self._template = T.init_caches(cfg, 1, cache_slots, **paged_kw)
+        if create_arrays:
+            paged_kw = dict(per_slot_pos=True, device=device,
+                            paged_global_attn=True,
+                            paged_window_attn=paged_window)
+            with torch.inference_mode():
+                self.dense = T.init_caches(cfg, num_slots, cache_slots,
+                                           **paged_kw)
+                self._template = T.init_caches(cfg, 1, cache_slots,
+                                               **paged_kw)
+        else:
+            self.dense = None
+            self._template = template
         # group the paged keys by view length: one pool + page table each
         by_view: Dict[int, List[str]] = {}
         self.key_view: Dict[str, int] = {}
         for i, spec in enumerate(cfg.pattern):
             key = f"p{i}"
-            if self.dense[key].get("attn", 0) is not None:
+            if self._template[key].get("attn", 0) is not None:
                 continue
             vl = _attn_view_len(spec, cache_slots)
             by_view.setdefault(vl, []).append(key)
@@ -276,7 +268,8 @@ class _PagedBacking:
                 key: attention.make_paged_cache(
                     g.pool.num_blocks, block_size, cfg.num_kv_heads,
                     cfg.head_dim, periods=cfg.num_periods, device=device)
-                for g in self.groups.values() for key in g.keys}
+                for g in self.groups.values()
+                for key in g.keys} if create_arrays else None
         g_global = self.groups.get(cache_slots)
         self.position_capacity = (g_global.pool.num_blocks * block_size
                                   if g_global else num_slots * cache_slots)
@@ -300,18 +293,70 @@ class _PagedBacking:
         # a one-slot dense snapshot has the template's size
         self._dense_slot_bytes = SwapEntry({}, {}, self._template).nbytes
         self._rows_cache: Optional[Dict[str, Tensor]] = None
+        # bumped on every mapping change: a sharded owner keys its stacked
+        # rows on the shards' epochs
+        self._rows_epoch = 0
         self._chunk = engine.make_paged_chunk_step(cfg)
         self._decode = engine.make_paged_decode_step(cfg)
         self._verify = None     # at first use: it refuses recurrent layers
 
+    def _invalidate_rows(self):
+        self._rows_cache = None
+        self._rows_epoch += 1
+
     def _idx(self, idx: Sequence[int]) -> Tensor:
         return torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
 
-    def _block_rows(self, blocks: Sequence[int]) -> Tensor:
+    # -- device-op hooks -------------------------------------------------
+
+    def _dense_at(self, slot: int) -> Tuple[dict, Tensor]:
+        """The dense tree that holds ``slot``, and its index there."""
+        return self.dense, self._idx([slot])
+
+    def _pools(self, g: _PageGroup) -> Dict[str, attention.KVCache]:
+        return {k: self.paged[k] for k in g.keys}
+
+    def _rows_of(self, g: _PageGroup, blocks: Sequence[int]) -> Tensor:
+        """Physical rows of group ``g``'s ``blocks`` in ``_pools(g)``."""
         return self._idx(PageTable.block_rows(blocks, self.block_size))
 
-    def _group_pools(self, g: _PageGroup):
-        return {k: self.paged[k] for k in g.keys}
+    def _key_cache(self, key: str) -> attention.KVCache:
+        """The flat paged pool of ``key`` (for its shapes)."""
+        return self.paged[key]
+
+    def _dev_dense_reset(self, slot: int):
+        tree, ix = self._dense_at(slot)
+        _reset(tree, self._template, ix)
+
+    def _dev_dense_gather(self, slot: int):
+        """``slot``'s dense leaves, copied to host tensors."""
+        tree, ix = self._dense_at(slot)
+        return _tree_map(lambda x: x.cpu(), _gather(tree, ix))
+
+    def _dev_dense_scatter(self, slot: int, sub):
+        tree, ix = self._dense_at(slot)
+        _scatter(tree, _tree_map(lambda x: x.to(ix.device), sub), ix)
+
+    def _dev_block_copy(self, g: _PageGroup, src: Sequence[int],
+                        dst: Sequence[int]):
+        engine.copy_block_rows(self._pools(g), self._rows_of(g, src),
+                               self._rows_of(g, dst))
+
+    def _dev_block_reset(self, g: _PageGroup, blocks: Sequence[int]):
+        engine.reset_block_rows(self._pools(g), self._rows_of(g, blocks))
+
+    def _dev_block_gather(self, g: _PageGroup, blocks: Sequence[int]):
+        """The bytes of ``blocks`` in every pool of ``g``, as host
+        tensors."""
+        got = engine.gather_block_rows(self._pools(g),
+                                       self._rows_of(g, blocks))
+        return {key: attention.KVCache(*(x.cpu() for x in c))
+                for key, c in got.items()}
+
+    def _dev_block_upload(self, g: _PageGroup, saved,
+                          blocks: Sequence[int]):
+        engine.upload_block_rows(self._pools(g), saved,
+                                 self._rows_of(g, blocks))
 
     @property
     def total_rows(self) -> int:
@@ -431,6 +476,15 @@ class _PagedBacking:
                 self.groups[vl].pool.free(b)
             n += 1
 
+    def prefix_holds(self) -> Dict[int, np.ndarray]:
+        """Per-group block references the prefix index holds (those no
+        slot owns; the invariant checks count them)."""
+        if self.prefix is None:
+            return {vl: np.zeros(g.pool.num_blocks, np.int64)
+                    for vl, g in self.groups.items()}
+        return self.prefix.holds(
+            {vl: g.pool.num_blocks for vl, g in self.groups.items()})
+
     # -- page-table lifecycle --------------------------------------------
 
     def can_admit(self, prompt_len: int, prompt=None,
@@ -460,7 +514,7 @@ class _PagedBacking:
         """Reset ``slot``'s dense leaves and map its prompt blocks; with
         prefix sharing the longest indexed chunk-aligned prefix of
         ``prompt`` maps read-shared first. Returns the prefill start."""
-        _reset(self.dense, self._template, self._idx([slot]))
+        self._dev_dense_reset(slot)
         shared_pos = 0
         if self.prefix is not None and prompt is not None:
             n, hit, _ = self._match_shared(prompt, len(prompt),
@@ -470,7 +524,7 @@ class _PagedBacking:
                     g.pt.map_shared(slot, [e[vl] for e in hit])
                 shared_pos = n * self.block_size
                 self.shared_chunks_mapped += n
-                self._rows_cache = None
+                self._invalidate_rows()
         self._shared_pos[slot] = shared_pos
         if not self.ensure(slot, max(prompt_len, 1) - 1):
             raise RuntimeError(
@@ -501,20 +555,17 @@ class _PagedBacking:
                         break
                     pairs.append(got)
                 if pairs:
-                    engine.copy_block_rows(
-                        self._group_pools(g),
-                        self._block_rows([p[0] for p in pairs]),
-                        self._block_rows([p[1] for p in pairs]))
+                    self._dev_block_copy(g, [p[0] for p in pairs],
+                                         [p[1] for p in pairs])
                     self.cow_copies += len(pairs)
-                    self._rows_cache = None
+                    self._invalidate_rows()
             ok, new = g.pt.ensure(slot, upto_pos)
             if not ok and self._reclaim(g, 1):
                 ok, more = g.pt.ensure(slot, upto_pos)
                 new = new + more
             if new:
-                engine.reset_block_rows(self._group_pools(g),
-                                        self._block_rows(new))
-                self._rows_cache = None
+                self._dev_block_reset(g, new)
+                self._invalidate_rows()
             ok_all = ok_all and ok
         return ok_all
 
@@ -524,7 +575,7 @@ class _PagedBacking:
             freed += g.pt.free_slot(slot)
         self._shared_pos.pop(slot, None)
         if freed:
-            self._rows_cache = None
+            self._invalidate_rows()
         return freed
 
     # -- swap-out preemption ---------------------------------------------
@@ -536,7 +587,7 @@ class _PagedBacking:
         for g in self.groups.values():
             nb = g.pt.mapped_blocks(slot)
             for key in g.keys:
-                c = self.paged[key]
+                c = self._key_cache(key)
                 row = (c.k[0, 0].numel() * c.k.element_size()
                        + c.v[0, 0].numel() * c.v.element_size()
                        + c.pos.element_size())
@@ -558,11 +609,7 @@ class _PagedBacking:
             phys = [int(b) for b in g.pt.table[slot] if b != g.pt.trash]
             blocks[vl] = len(phys)
             if phys:
-                got = engine.gather_block_rows(self._group_pools(g),
-                                               self._block_rows(phys))
-                paged_host.update({
-                    key: attention.KVCache(*(x.cpu() for x in c))
-                    for key, c in got.items()})
+                paged_host.update(self._dev_block_gather(g, phys))
             # shared blocks are released, not stolen: the bytes were just
             # copied, and only this slot's reference drops
             _, released = g.pt.swap_out(slot)
@@ -570,9 +617,8 @@ class _PagedBacking:
                 raise RuntimeError(f"swap_out released {released} != "
                                    f"mapped {phys} (group {vl})")
             if released:
-                self._rows_cache = None
-        dense_host = _tree_map(lambda x: x.cpu(),
-                               _gather(self.dense, self._idx([slot])))
+                self._invalidate_rows()
+        dense_host = self._dev_dense_gather(slot)
         self._shared_pos.pop(slot, None)
         return self.swaps.put(rid, SwapEntry(
             blocks=blocks, paged=paged_host, dense=dense_host))
@@ -596,11 +642,9 @@ class _PagedBacking:
             if new is None:
                 raise RuntimeError(
                     "swap_in after can_admit_swapped ran out of blocks")
-            engine.upload_block_rows(self._group_pools(g), entry.paged,
-                                     self._block_rows(new))
-            self._rows_cache = None
-        _scatter(self.dense, _tree_map(lambda x: x.to(self.device),
-                                       entry.dense), self._idx([slot]))
+            self._dev_block_upload(g, entry.paged, new)
+            self._invalidate_rows()
+        self._dev_dense_scatter(slot, entry.dense)
         self._shared_pos[slot] = 0      # resumed mappings are private
         return entry.nbytes
 
@@ -687,6 +731,375 @@ class _PagedBacking:
         """Registry 'paging' provider: the numeric stats() keys."""
         return {k: v for k, v in self.stats().items() if k != "allocator"}
 
+# ---------------------------------------------------------------------------
+# the sharded backing: per-shard block pools over one stack or one mesh
+# ---------------------------------------------------------------------------
+
+class _ShardState(_PagedBacking):
+    """Host state of ONE shard of a stacked pool: its own page-table
+    groups, swap store, prefix index and shared-prefix map, so paging,
+    copy-on-write, swap and the window rings stay inside the shard. Its
+    device operations address the owner's stacked tensors: slots offset by
+    the shard's dense segment, block rows by its segment of each flat
+    pool."""
+
+    def __init__(self, owner: "_ShardedPagedBacking", shard: int, *args,
+                 **kw):
+        self._owner = owner
+        self.shard = shard
+        super().__init__(*args, create_arrays=False,
+                         template=owner._template, **kw)
+
+    def _dense_at(self, slot: int) -> Tuple[dict, Tensor]:
+        o = self._owner
+        return o.dense, o._idx([self.shard * self.num_slots + slot])
+
+    def _pools(self, g: _PageGroup) -> Dict[str, attention.KVCache]:
+        return {k: self._owner.paged[k] for k in g.keys}
+
+    def _rows_of(self, g: _PageGroup, blocks: Sequence[int]) -> Tensor:
+        base = self.shard * (g.pool.num_blocks + 1) * self.block_size
+        return self._idx(PageTable.block_rows(blocks, self.block_size)
+                         + base)
+
+    def _key_cache(self, key: str) -> attention.KVCache:
+        return self._owner.paged[key]
+
+
+class _ShardedPagedBacking:
+    """The paged slot pool split into ``num_shards`` shards of
+    ``num_slots / num_shards`` slots; ``num_blocks``, ``num_window_blocks``
+    and ``swap_bytes_budget`` are per shard (a shard is a device's share of
+    the pool). Slot ids are global (shard s owns [s*k, (s+1)*k)); every
+    block-granular piece of state is per shard, and the only thing that
+    crosses shards is a parked SwapEntry (``migrate_swapped``, the work
+    stealing of a preempted request).
+
+    Without a mesh, stacked tensors hold every shard's segment back to
+    back (dense leaves with num_shards * k slots; each flat pool
+    num_shards segments of (num_blocks + 1) * block_size rows, each ending
+    in its own trash block) and ``_ShardState``s keep the host state. With
+    a mesh each shard is a ``_PagedBacking`` on its own device."""
+
+    is_paged = True
+
+    def __init__(self, cfg: ModelConfig, num_slots: int, cache_slots: int,
+                 device: torch.device, block_size: int,
+                 num_blocks: Optional[int], paged_window: bool = True,
+                 num_window_blocks: Optional[int] = None,
+                 swap_bytes_budget: Optional[int] = None,
+                 prefix_sharing: bool = False,
+                 prefix_align: Optional[int] = None,
+                 prefix_capacity: int = 512, *, num_shards: int = 1,
+                 mesh=None, axis: Optional[str] = None):
+        engine._check_shard_mesh(num_shards, mesh, axis)
+        if num_slots % num_shards:
+            raise ValueError(f"num_slots={num_slots} must divide evenly "
+                             f"over {num_shards} shard(s)")
+        self.cfg = cfg
+        self.num_slots = num_slots
+        self.num_shards = num_shards
+        self.slots_per_shard = k = num_slots // num_shards
+        self.cache_slots = cache_slots
+        self.block_size = block_size
+        self.mesh = mesh
+        self.axis = axis
+        kw = dict(paged_window=paged_window,
+                  num_window_blocks=num_window_blocks,
+                  swap_bytes_budget=swap_bytes_budget,
+                  prefix_sharing=prefix_sharing, prefix_align=prefix_align,
+                  prefix_capacity=prefix_capacity)
+        if mesh is None:
+            self.device = device
+            paged_kw = dict(per_slot_pos=True, device=device,
+                            paged_global_attn=True,
+                            paged_window_attn=paged_window)
+            with torch.inference_mode():
+                self.dense = T.init_caches(cfg, num_slots, cache_slots,
+                                           **paged_kw)
+                self._template = T.init_caches(cfg, 1, cache_slots,
+                                               **paged_kw)
+            self.shards: List[_PagedBacking] = [
+                _ShardState(self, s, cfg, k, cache_slots, device,
+                            block_size, num_blocks, **kw)
+                for s in range(num_shards)]
+            with torch.inference_mode():
+                self.paged = {
+                    key: attention.make_paged_cache(
+                        num_shards * (g.pool.num_blocks + 1) - 1,
+                        block_size, cfg.num_kv_heads, cfg.head_dim,
+                        periods=cfg.num_periods, device=device)
+                    for g in self.shards[0].groups.values()
+                    for key in g.keys}
+        else:
+            self.device = mesh.devices[0]
+            self.dense = self.paged = None
+            self.shards = [_PagedBacking(cfg, k, cache_slots, dev,
+                                         block_size, num_blocks, **kw)
+                           for dev in mesh.devices]
+        s0 = self.shards[0]
+        self.key_view = s0.key_view
+        self.position_capacity = num_shards * s0.position_capacity
+        self._rows_cache: Optional[Dict[str, Tensor]] = None
+        self._rows_key: Optional[Tuple[int, ...]] = None
+        # mesh: (params, its copy on each device)
+        self._replicas: Optional[Tuple[object, List]] = None
+        step = (cfg, num_shards, block_size, mesh, axis)
+        self._chunk = engine.make_sharded_chunk_step(*step)
+        self._decode = engine.make_sharded_decode_step(*step)
+        self._step_key = step
+
+    @property
+    def total_rows(self) -> int:
+        return self.num_shards * self.shards[0].total_rows
+
+    def _idx(self, idx: Sequence[int]) -> Tensor:
+        return torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
+
+    def _loc(self, slot: int) -> Tuple[_PagedBacking, int]:
+        return (self.shards[slot // self.slots_per_shard],
+                slot % self.slots_per_shard)
+
+    def shard_of(self, slot: int) -> int:
+        return slot // self.slots_per_shard
+
+    def shard_free_blocks(self, shard: int) -> int:
+        """Free blocks across the shard's groups: the least-loaded
+        placement signal."""
+        return sum(g.pool.num_blocks - g.pool.used_count
+                   for g in self.shards[shard].groups.values())
+
+    # -- routed lifecycle (slot ids global, block state per shard) -------
+
+    def can_admit(self, prompt_len: int, prompt=None,
+                  span: Optional[int] = None, shard: int = 0) -> bool:
+        return self.shards[shard].can_admit(prompt_len, prompt=prompt,
+                                            span=span)
+
+    def fits_pool(self, n_positions: int) -> Optional[str]:
+        return self.shards[0].fits_pool(n_positions)
+
+    def alloc_reset(self, slot: int, prompt_len: int, prompt=None,
+                    span: Optional[int] = None) -> int:
+        sh, loc = self._loc(slot)
+        return sh.alloc_reset(loc, prompt_len, prompt=prompt, span=span)
+
+    def prefill_start(self, slot: int) -> int:
+        sh, loc = self._loc(slot)
+        return sh.prefill_start(loc)
+
+    def register_prefix(self, slot: int, prompt, span: int,
+                        upto_tokens: int) -> int:
+        sh, loc = self._loc(slot)
+        return sh.register_prefix(loc, prompt, span, upto_tokens)
+
+    def flush_prefix(self) -> int:
+        return sum(sh.flush_prefix() for sh in self.shards)
+
+    def ensure(self, slot: int, upto_pos: int,
+               write_from: Optional[int] = None) -> bool:
+        sh, loc = self._loc(slot)
+        return sh.ensure(loc, upto_pos, write_from=write_from)
+
+    def release_slot(self, slot: int) -> List[int]:
+        sh, loc = self._loc(slot)
+        return sh.release_slot(loc)
+
+    # -- swap and cross-shard migration ----------------------------------
+
+    def swap_bytes_estimate(self, slot: int) -> int:
+        sh, loc = self._loc(slot)
+        return sh.swap_bytes_estimate(loc)
+
+    def swap_out(self, slot: int, rid: int) -> Optional[int]:
+        sh, loc = self._loc(slot)
+        return sh.swap_out(loc, rid)
+
+    def swapped_shard(self, rid: int) -> Optional[int]:
+        for s, sh in enumerate(self.shards):
+            if rid in sh.swaps:
+                return s
+        return None
+
+    def can_admit_swapped(self, rid: int) -> bool:
+        s = self.swapped_shard(rid)
+        return s is not None and self.shards[s].can_admit_swapped(rid)
+
+    def swap_in(self, slot: int, rid: int) -> int:
+        sh, loc = self._loc(slot)
+        if rid not in sh.swaps:
+            raise RuntimeError(
+                f"rid {rid} is not swapped on shard {self.shard_of(slot)}: "
+                "migrate_swapped before a cross-shard swap_in")
+        return sh.swap_in(loc, rid)
+
+    def migrate_swapped(self, rid: int, dst_shard: int) -> bool:
+        """Move ``rid``'s parked SwapEntry from its home shard's store to
+        ``dst_shard``'s: the host bytes change owner, the device is not
+        touched, and the request keeps its prefill progress. False when
+        it is not swapped, is already there, or the destination's budget
+        cannot hold it (the caller leaves the request where it is)."""
+        src = self.swapped_shard(rid)
+        if src is None or src == dst_shard:
+            return False
+        dst = self.shards[dst_shard].swaps
+        entry = self.shards[src].swaps.get(rid)
+        if dst.max_bytes is not None and not dst.can_hold(entry.nbytes):
+            return False
+        dst.migrate_in(rid, self.shards[src].swaps.migrate_out(rid))
+        return True
+
+    def can_steal_swapped(self, rid: int, dst_shard: int) -> bool:
+        """True when ``dst_shard`` could hold AND admit ``rid``'s parked
+        entry now: its swap budget fits the bytes and every group can
+        reclaim the saved blocks. The steal pass checks this before it
+        migrates, so a steal never strands an entry."""
+        src = self.swapped_shard(rid)
+        if src is None or src == dst_shard:
+            return False
+        entry = self.shards[src].swaps.get(rid)
+        dst = self.shards[dst_shard]
+        if dst.swaps.max_bytes is not None \
+                and not dst.swaps.can_hold(entry.nbytes):
+            return False
+        return all(dst._reclaim(g, entry.blocks.get(vl, 0))
+                   for vl, g in dst.groups.items())
+
+    # -- device-facing row vectors ---------------------------------------
+
+    def _stacked(self, slots: Sequence[int]) -> Dict[str, Tensor]:
+        """Stacked-pool rows of global ``slots``, per paged key."""
+        k = self.slots_per_shard
+        shard = np.asarray([i // k for i in slots], np.int64)
+        per_group = {}
+        for vl, g0 in self.shards[0].groups.items():
+            local = np.stack([self.shards[s].groups[vl].pt.rows([i % k])[0]
+                              for s, i in zip(shard, slots)])
+            per_group[vl] = self._idx(engine.stacked_rows(
+                local, shard, g0.pool.num_blocks, self.num_shards,
+                self.block_size))
+        return {key: per_group[vl] for key, vl in self.key_view.items()}
+
+    def _rows_all(self):
+        """Every slot's rows: stacked (cached on the shards' epochs), or
+        with a mesh each shard's own."""
+        if self.mesh is not None:
+            return [sh._rows_all() for sh in self.shards]
+        key = tuple(sh._rows_epoch for sh in self.shards)
+        if self._rows_cache is None or self._rows_key != key:
+            self._rows_cache = self._stacked(range(self.num_slots))
+            self._rows_key = key
+        return self._rows_cache
+
+    # -- data movement ---------------------------------------------------
+
+    def gather(self, idx: Sequence[int]):
+        if self.mesh is None:
+            return engine.merge_paged(_gather(self.dense, self._idx(idx)),
+                                      self.paged, self._stacked(idx),
+                                      self.block_size)
+        subs = [_tree_map(lambda x: x.to(self.device), sh.gather([loc]))
+                for sh, loc in map(self._loc, idx)]
+        return _tree_map(lambda *xs: torch.cat(xs, _SLOT_AXIS), *subs)
+
+    def scatter(self, sub, idx: Sequence[int]):
+        if self.mesh is None:
+            with torch.inference_mode():
+                dense = engine.split_paged(sub, self.paged,
+                                           self._stacked(idx))
+            _scatter(self.dense, dense, self._idx(idx))
+            return
+        for j, (sh, loc) in enumerate(map(self._loc, idx)):
+            sh.scatter(_tree_map(lambda x: x[:, j:j + 1].to(sh.device), sub),
+                       [loc])
+
+    def _mesh_params(self, params) -> List:
+        """``params`` on every mesh device, copied once per params."""
+        if self._replicas is None or self._replicas[0] is not params:
+            self._replicas = (params, engine.replicate_params(
+                params, self.mesh.devices))
+        return self._replicas[1]
+
+    def run_chunk(self, params, idx: Sequence[int], tokens: Tensor,
+                  pos: Tensor) -> Tensor:
+        """Chunk-prefill global slots ``idx``; logits in input order."""
+        if self.mesh is None:
+            return self._chunk(params, self.dense, self.paged,
+                               self._idx(idx), self._stacked(idx), tokens,
+                               pos)
+        per = [[j for j, i in enumerate(idx) if self.shard_of(i) == s]
+               for s in range(self.num_shards)]
+        locs = [[idx[j] % self.slots_per_shard for j in js] for js in per]
+        pick = [torch.as_tensor(js, dtype=torch.int64).to(tokens.device)
+                for js in per]
+        out = self._chunk(self._mesh_params(params),
+                          [sh.dense for sh in self.shards],
+                          [sh.paged for sh in self.shards], locs,
+                          [sh._rows(loc) if loc else None
+                           for sh, loc in zip(self.shards, locs)],
+                          [tokens[p] for p in pick], [pos[p] for p in pick])
+        order = torch.as_tensor([j for js in per for j in js])
+        logits = torch.cat([lg for lg in out if lg is not None])
+        return logits[torch.argsort(order).to(logits.device)]
+
+    def _run_step(self, step, params, *args):
+        """``step`` over the whole pool; the dense state it returns is
+        kept (per shard with a mesh)."""
+        if self.mesh is None:
+            *out, self.dense = step(params, self.dense, self.paged,
+                                    self._rows_all(), *args)
+            return out
+        dense = [sh.dense for sh in self.shards]
+        *out, dense = step(self._mesh_params(params), dense,
+                           [sh.paged for sh in self.shards],
+                           self._rows_all(), *args)
+        for sh, d in zip(self.shards, dense):
+            sh.dense = d
+        return out
+
+    def run_decode(self, params, tokens, pos, temps, generators,
+                   top_ks=None, top_ps=None):
+        return self._run_step(self._decode, params, tokens, pos, temps,
+                              generators, top_ks, top_ps)
+
+    def run_verify(self, params, tokens, pos, prompt_len, max_pos, score,
+                   active, temps, top_ks, top_ps, generators):
+        step = engine.make_sharded_verify_step(*self._step_key)
+        return self._run_step(step, params, tokens, pos, prompt_len,
+                              max_pos, score, active, temps, top_ks, top_ps,
+                              generators)
+
+    # -- stats -----------------------------------------------------------
+
+    def stats(self) -> dict:
+        """The shards' numeric stats summed, with the pool-wide ones
+        recomputed and ``num_shards``."""
+        agg: Dict[str, object] = {}
+        for sh in self.shards:
+            for key, v in sh.stats().items():
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    continue
+                agg[key] = agg.get(key, 0) + v
+        agg["allocator"] = "paged"
+        agg["page_groups"] = len(self.shards[0].groups)
+        agg["block_size"] = self.block_size
+        agg["block_utilization"] = (agg["blocks_used"]
+                                    / max(agg["blocks_total"], 1))
+        agg["num_shards"] = self.num_shards
+        return agg
+
+    metrics = _PagedBacking.metrics
+
+    def shard_metrics(self) -> dict:
+        """Per-shard block and swap gauges, ``shard<i>.``-prefixed."""
+        out = {}
+        for s, sh in enumerate(self.shards):
+            st = sh.stats()
+            out[f"shard{s}.blocks_free"] = st["blocks_free"]
+            out[f"shard{s}.blocks_used"] = st["blocks_used"]
+            out[f"shard{s}.swapped_held"] = st["swapped_held"]
+        return out
+
 
 class SlotManager:
     """Fixed pool of ``num_slots`` decode-cache slots.
@@ -703,6 +1116,13 @@ class SlotManager:
     must run before a slot's write position grows, and ``release`` returns
     the blocks it freed. ``paged_window`` (default on) pages sliding-window
     rings through ring-mode groups too; off keeps them dense per slot.
+
+    ``mesh_shards=n`` (paged only) splits the pool into n shards of
+    ``num_slots / n`` slots, each with ``num_blocks`` blocks of its own
+    (and ``num_window_blocks``, ``swap_bytes_budget``); ``alloc`` and
+    ``can_admit`` then take a ``shard``. ``mesh`` (a ``launch.mesh``
+    worker mesh with n devices along ``mesh_axis``) puts each shard on its
+    own device; without one the shards share ``device``.
     """
 
     def __init__(self, cfg: ModelConfig, num_slots: int, cache_slots: int,
@@ -715,28 +1135,44 @@ class SlotManager:
                  prefix_align: Optional[int] = None,
                  prefix_capacity: int = 512,
                  mesh_shards: Optional[int] = None,
+                 mesh=None, mesh_axis: str = "slots",
                  device: DeviceLike = None):
         if prefix_sharing and not paged:
             raise ValueError("prefix_sharing needs the paged backing "
                              "(blocks are the sharing granule)")
-        if mesh_shards is not None and not paged:
+        self.sharded = mesh_shards is not None
+        if self.sharded and not paged:
             raise ValueError("mesh_shards needs the paged backing "
                              "(blocks are the per-shard granule)")
-        if mesh_shards is not None:
-            raise NotImplementedError(
-                f"mesh_shards is not ported yet: it comes with {_SHARDED}")
+        if mesh is not None and not self.sharded:
+            raise ValueError("mesh without mesh_shards: pass "
+                             "mesh_shards=len(mesh devices)")
+        self.num_shards = mesh_shards if self.sharded else 1
+        if num_slots % self.num_shards:
+            raise ValueError(f"num_slots={num_slots} must divide evenly "
+                             f"over {self.num_shards} shard(s)")
+        self.slots_per_shard = num_slots // self.num_shards
         self.cfg = cfg
         self.num_slots = num_slots
         self.cache_slots = cache_slots
-        dev = resolve_device(device)
-        self.backing = (_PagedBacking(
-            cfg, num_slots, cache_slots, dev, block_size, num_blocks,
-            paged_window=paged_window, num_window_blocks=num_window_blocks,
-            swap_bytes_budget=swap_bytes_budget,
-            prefix_sharing=prefix_sharing, prefix_align=prefix_align,
-            prefix_capacity=prefix_capacity)
-            if paged else _ContiguousBacking(cfg, num_slots, cache_slots,
-                                             dev))
+        dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+        paged_kw = dict(paged_window=paged_window,
+                        num_window_blocks=num_window_blocks,
+                        swap_bytes_budget=swap_bytes_budget,
+                        prefix_sharing=prefix_sharing,
+                        prefix_align=prefix_align,
+                        prefix_capacity=prefix_capacity)
+        if self.sharded:
+            self.backing = _ShardedPagedBacking(
+                cfg, num_slots, cache_slots, dev, block_size, num_blocks,
+                **paged_kw, num_shards=mesh_shards, mesh=mesh,
+                axis=mesh_axis if mesh is not None else None)
+        elif paged:
+            self.backing = _PagedBacking(cfg, num_slots, cache_slots, dev,
+                                         block_size, num_blocks, **paged_kw)
+        else:
+            self.backing = _ContiguousBacking(cfg, num_slots, cache_slots,
+                                              dev)
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
         self.owner: List[Optional[int]] = [None] * num_slots
         self.valid = np.zeros(num_slots, bool)
@@ -771,16 +1207,46 @@ class SlotManager:
     def free_count(self) -> int:
         return len(self._free)
 
+    def free_count_shard(self, shard: int) -> int:
+        k = self.slots_per_shard
+        return sum(1 for i in self._free if i // k == shard)
+
+    def shard_of_slot(self, slot: int) -> int:
+        return slot // self.slots_per_shard
+
+    def shard_free_blocks(self, shard: int) -> int:
+        """Free blocks on ``shard`` (sharded backing): the least-loaded
+        placement signal the scheduler reads."""
+        return self.backing.shard_free_blocks(shard)
+
+    def _pop_free(self, shard: Optional[int]) -> int:
+        """Claim the most recently freed slot (LIFO), within ``shard``
+        when given. At one shard both forms pop the same slot, so the
+        sharded pool at n=1 allocates as the unsharded one does."""
+        if shard is None:
+            return self._free.pop()
+        k = self.slots_per_shard
+        for i in range(len(self._free) - 1, -1, -1):
+            if self._free[i] // k == shard:
+                return self._free.pop(i)
+        raise RuntimeError(f"no free slot on shard {shard}")
+
     @property
     def live(self) -> List[int]:
         return [i for i in range(self.num_slots) if self.valid[i]]
 
     def can_admit(self, prompt_len: int = 0, prompt=None,
-                  span: Optional[int] = None) -> bool:
+                  span: Optional[int] = None,
+                  shard: Optional[int] = None) -> bool:
         """A free slot AND (paged) the prompt's blocks free in every
         page-table group. With prefix sharing, ``prompt`` (tokens)
         discounts blocks an indexed shared prefix holds, and ``span``
-        (prompt + generation budget) bounds ring-group sharing."""
+        (prompt + generation budget) bounds ring-group sharing. On a
+        sharded pool ``shard`` scopes both checks to that shard."""
+        if shard is not None:
+            return (self.free_count_shard(shard) > 0
+                    and self.backing.can_admit(prompt_len, prompt=prompt,
+                                               span=span, shard=shard))
         return bool(self._free) and self.backing.can_admit(
             prompt_len, prompt=prompt, span=span)
 
@@ -790,14 +1256,17 @@ class SlotManager:
         return self.backing.fits_pool(n_positions)
 
     def alloc(self, owner: int, prompt_len: int = 0, prompt=None,
-              span: Optional[int] = None) -> Optional[int]:
+              span: Optional[int] = None,
+              shard: Optional[int] = None) -> Optional[int]:
         """Claim the most recently freed slot for request ``owner`` and zero
         its rows (paged: map and zero the prompt's blocks, or map an
-        indexed shared prefix read-shared, see ``prefill_start``). Returns
-        the slot index, or None when the slots or blocks are exhausted."""
-        if not self.can_admit(prompt_len, prompt=prompt, span=span):
+        indexed shared prefix read-shared, see ``prefill_start``);
+        ``shard`` pins the slot to one shard of a sharded pool. Returns the
+        slot index, or None when the slots or blocks are exhausted."""
+        if not self.can_admit(prompt_len, prompt=prompt, span=span,
+                              shard=shard):
             return None
-        slot = self._free.pop()
+        slot = self._pop_free(shard)
         self.backing.alloc_reset(slot, prompt_len, prompt=prompt, span=span)
         self.owner[slot] = owner
         self.valid[slot] = True
@@ -859,11 +1328,37 @@ class SlotManager:
         return nbytes
 
     def is_swapped(self, rid: int) -> bool:
-        return self.backing.is_paged and rid in self.backing.swaps
+        if not self.backing.is_paged:
+            return False
+        if self.sharded:
+            return self.backing.swapped_shard(rid) is not None
+        return rid in self.backing.swaps
+
+    def swapped_shard(self, rid: int) -> Optional[int]:
+        """Shard whose swap store holds ``rid`` (sharded backing)."""
+        return self.backing.swapped_shard(rid)
+
+    def migrate_swapped(self, rid: int, dst_shard: int) -> bool:
+        """Steal a swapped-out request to ``dst_shard``'s swap store (host
+        bytes change owner; prefill progress is kept). False when it is
+        not swapped, is already there or exceeds the destination's
+        budget."""
+        return self.backing.migrate_swapped(rid, dst_shard)
+
+    def can_steal_swapped(self, rid: int, dst_shard: int) -> bool:
+        """Could ``dst_shard`` hold and admit ``rid``'s swapped entry now
+        (a free slot, swap budget and free blocks)?"""
+        return (self.free_count_shard(dst_shard) > 0
+                and self.backing.can_steal_swapped(rid, dst_shard))
 
     def can_admit_swapped(self, rid: int) -> bool:
         """A free slot AND blocks for the request's saved prefix in every
-        page-table group."""
+        page-table group (sharded: both on the shard whose store holds
+        the entry)."""
+        if self.sharded:
+            s = self.backing.swapped_shard(rid)
+            return (s is not None and self.free_count_shard(s) > 0
+                    and self.backing.can_admit_swapped(rid))
         return bool(self._free) and self.backing.can_admit_swapped(rid)
 
     def swap_in(self, rid: int) -> Optional[Tuple[int, int]]:
@@ -873,7 +1368,8 @@ class SlotManager:
         pool cannot host it yet."""
         if not self.can_admit_swapped(rid):
             return None
-        slot = self._free.pop()
+        slot = self._pop_free(self.backing.swapped_shard(rid)
+                              if self.sharded else None)
         nbytes = self.backing.swap_in(slot, rid)
         self.owner[slot] = rid
         self.valid[slot] = True
@@ -898,13 +1394,13 @@ class SlotManager:
         return self.backing.run_chunk(params, idx, tokens, pos)
 
     def run_decode(self, params, tokens: Tensor, pos: Tensor, temps: Tensor,
-                   generator: Optional[torch.Generator],
-                   top_ks: Optional[Tensor] = None,
+                   generator, top_ks: Optional[Tensor] = None,
                    top_ps: Optional[Tensor] = None):
         """ONE decode over the whole pool; returns (next tokens (B,),
         logits (B, 1, V)). top_ks/top_ps are optional (B,) per-slot
         sampling filters (None = disabled); ``generator`` may be None when
-        every slot is greedy."""
+        every slot is greedy, and is one generator a shard on a sharded
+        pool."""
         return self.backing.run_decode(params, tokens, pos, temps,
                                        generator, top_ks, top_ps)
 
@@ -912,12 +1408,12 @@ class SlotManager:
                    prompt_len: Tensor, max_pos: Tensor, score: Tensor,
                    active: Tensor, temps: Tensor,
                    top_ks: Optional[Tensor], top_ps: Optional[Tensor],
-                   generator: Optional[torch.Generator]):
+                   generator):
         """ONE speculative verify-accept tick over the whole pool
         (``engine.make_verify_step``'s contract): teacher-forces tokens
         (B, k+1) and returns (out_tok (B, k+1), accept_n (B,), logprobs
         (B, k+1)); rejected cache writes are rolled back, so the pool only
-        ever holds committed rows."""
+        ever holds committed rows. ``generator`` as in ``run_decode``."""
         return self.backing.run_verify(params, tokens, pos, prompt_len,
                                        max_pos, score, active, temps,
                                        top_ks, top_ps, generator)
@@ -931,6 +1427,21 @@ class SlotManager:
                 "cache_slots": self.cache_slots,
                 "position_capacity": self.position_capacity,
                 "total_rows": self.total_rows}
+
+    def shard_metrics(self) -> dict:
+        """Per-shard occupancy gauges: ``shard<i>.live_slots`` /
+        ``free_slots`` and (sharded backing) the per-shard block and swap
+        levels. The scheduler adds placement and steal counters under
+        ``serve.shard``."""
+        out = {}
+        k = self.slots_per_shard
+        for s in range(self.num_shards):
+            free = self.free_count_shard(s)
+            out[f"shard{s}.live_slots"] = k - free
+            out[f"shard{s}.free_slots"] = free
+        if self.sharded:
+            out.update(self.backing.shard_metrics())
+        return out
 
     def stats(self) -> dict:
         return {**self.metrics(), **self.backing.stats()}

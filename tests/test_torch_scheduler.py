@@ -227,9 +227,9 @@ def test_scheduler_serves_repeats_from_the_cache(model):
 
 
 def test_submit_validation(model):
-    """User input raises ValueError before anything is enqueued; the parts
-    of the reference not ported yet raise NotImplementedError after the
-    reference's own ValueError checks."""
+    """User input raises ValueError before anything is enqueued, with the
+    reference's checks and messages; every option of the reference's
+    scheduler builds, the sharded pool included."""
     _, tcfg, _, tparams = model("gemma-2b")
     _, rwkv_cfg, _, rwkv_params = model("rwkv6-1.6b")
     sched = Scheduler(tcfg, tparams, SchedulerConfig(
@@ -270,9 +270,8 @@ def test_submit_validation(model):
         make(rwkv_cfg, rwkv_params, speculate=2)
     with pytest.raises(ValueError, match="mesh_shards"):
         Scheduler(tcfg, tparams, SchedulerConfig(), mesh=object())
-    # the paged allocator, prefix sharing and speculation are ported (a
-    # speculative scheduler serves a greedy request); the sharded pool
-    # raises with its ROADMAP pointer
+    # the paged allocator, prefix sharing, speculation and the sharded
+    # pool are ported (a speculative scheduler serves a greedy request)
     assert make(allocator="paged").slots.paged
     assert make(allocator="paged", prefix_sharing=True).slots.paged
     spec = make(speculate=2, num_slots=2, max_len=32, prefill_chunk=8)
@@ -280,11 +279,9 @@ def test_submit_validation(model):
     (done,) = spec.drain()
     assert done.rid == rid and len(done.tokens) == 4
     assert spec.counters["spec.drafted_tokens"] > 0
-    with pytest.raises(NotImplementedError,
-                       match="the sharded pool \\(ROADMAP queue 1\\)"):
-        make(allocator="paged", mesh_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        SlotManager(tcfg, 2, 16, paged=True, mesh_shards=2, device="cpu")
+    assert make(allocator="paged", mesh_shards=2).slots.num_shards == 2
+    assert SlotManager(tcfg, 2, 16, paged=True, mesh_shards=2,
+                       device="cpu").sharded
     assert SlotManager(tcfg, 2, 16, paged=True, device="cpu").paged
 
 
